@@ -1,0 +1,68 @@
+"""Parameter definition machinery.
+
+Every module declares its parameters ONCE as a tree of ``ParamDef``
+(shape + logical axes + init kind); ``init_params`` materializes it.
+Shapes are the reference's (conv weights HWIO, depthwise ``(3,3,1,C)``),
+so a parameter tree carries across leaf for leaf.
+
+Random init draws from one CPU ``torch.Generator`` seeded once, leaf by
+leaf in the reference's leaf order, and only then moves to the device:
+the same seed gives the same weights on the card and on the CPU. (It
+does not give the reference's weights — JAX's threefry stream has no
+torch counterpart; parity tests copy the reference's init across with
+``models/convert.py``.)
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+class ParamDef(NamedTuple):
+    shape: tuple
+    axes: tuple                 # logical axis name per dim
+    init: str = "fan_in"        # fan_in | conv | zeros | ones
+    scale: float = 0.02
+    dtype: str = ""             # '' -> model param_dtype
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def _materialize(d: ParamDef, gen: torch.Generator, param_dtype: str):
+    dtype = _DTYPES[d.dtype or param_dtype]
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype)
+    if d.init == "fan_in":
+        fan_in = d.shape[0] if d.shape else 1
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+    elif d.init == "conv":       # HWIO conv weight: fan_in = H*W*I
+        fan_in = math.prod(d.shape[:-1]) if len(d.shape) > 1 else 1
+        std = math.sqrt(2.0 / max(fan_in, 1))
+    else:
+        raise ValueError(f"unknown init {d.init!r}")
+    return (torch.randn(d.shape, generator=gen, dtype=torch.float32)
+            * std).to(dtype)
+
+
+def init_params(defs, seed: int, param_dtype: str = "float32", *,
+                device):
+    """Materialize a ParamDef tree into tensors on ``device``."""
+    leaves, skel = tree_flatten(defs, is_leaf=is_def)
+    gen = torch.Generator().manual_seed(int(seed))
+    out = [_materialize(d, gen, param_dtype).to(device) for d in leaves]
+    return tree_unflatten(skel, out)
+
+
+def count_params(defs) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(defs, is_leaf=is_def))

@@ -1,0 +1,61 @@
+"""Parameter trees and Eq.-1 accounting of the port against the
+reference: leaf order of the port's flatten, the numpy<->tensor bridge,
+and the literal per-unit cost table against the live XLA cost analysis."""
+import types
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.models import SplitModel as RefModel
+from repro.utils import flops as ref_flops
+from repro_torch.configs import get_config
+from repro_torch.models import SplitModel
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.utils import flops
+from repro_torch.utils.tree import tree_leaves
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(a), tree)
+
+
+@pytest.mark.parametrize("name", ["resnet8", "vgg16", "mobilenet"])
+def test_leaf_order_matches_jax_flatten(name):
+    """Model legs flatten each client portion and key residuals and
+    rand-k draws by leaf index: the port's flatten must walk the tree in
+    jax.tree.flatten's order (dict keys sorted)."""
+    rm = RefModel(ref_get_config(name))
+    rp = _np_tree(jax.jit(rm.init)(jax.random.PRNGKey(0)))
+    tp = params_from_numpy(rp, device="cpu")
+    ref_leaves = jax.tree.leaves(rp)
+    port_leaves = tree_leaves(tp)
+    assert len(ref_leaves) == len(port_leaves)
+    for a, b in zip(ref_leaves, port_leaves):
+        np.testing.assert_array_equal(a, b.numpy())
+    # and back again, leaf for leaf
+    back = params_to_numpy(tp)
+    for a, b in zip(jax.tree.leaves(back), ref_leaves):
+        np.testing.assert_array_equal(a, b)
+    # the port's own init has the reference's shapes in the same order
+    mine = tree_leaves(SplitModel(get_config(name)).init(0, device="cpu"))
+    assert [tuple(t.shape) for t in mine] == [a.shape for a in ref_leaves]
+
+
+@pytest.mark.parametrize("name", ["resnet8", "vgg16", "mobilenet"])
+def test_flops_table_matches_live_reference(name):
+    """The literal unit-cost table equals the reference's live XLA cost
+    analysis, so the Eq.-1 inputs are identical at every split."""
+    rcfg, tcfg = ref_get_config(name), get_config(name)
+    assert flops.CNN_UNIT_COSTS[name] == ref_flops._cnn_unit_costs(rcfg)
+    rm, tm = RefModel(rcfg), SplitModel(tcfg)
+    for s in range(0, rm.n_units + 1):
+        assert flops.split_costs(tm, s) == ref_flops.split_costs(rm, s)
+
+
+def test_lm_families_refused():
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        get_config("internlm2-1.8b")
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        SplitModel(types.SimpleNamespace(arch_type="dense"))

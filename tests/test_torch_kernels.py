@@ -1,0 +1,208 @@
+"""The port's four comm kernels against the reference's Pallas kernels.
+
+On the CPU each wrapper takes its plain PyTorch version (the CUDA kernel
+runs on the card only, see ``test_cuda_kernels_match_plain_versions``);
+the reference runs its Pallas kernels in interpret mode and its jnp
+oracles. Inputs come from numpy seeds. int8 ``q`` must be identical and
+``scale``/``zp`` bit-equal to the oracle (IEEE fp32 elementwise ops in
+the same order); float outputs agree within 1e-6, the reference's own
+contract (tests/test_fused_comm.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.comm_fused import ops as ref_fused_ops
+from repro.kernels.comm_fused.kernel import (int8_roundtrip_pallas,
+                                             sparse_combine_pallas)
+from repro.kernels.int8_quant import ops as ref_int8_ops
+from repro.kernels.int8_quant.kernel import (int8_dequantize_pallas,
+                                             int8_quantize_pallas)
+from repro.kernels.int8_quant.ref import (int8_dequantize_ref,
+                                          int8_quantize_ref)
+from repro_torch.kernels.comm_fused import kernel as tcf
+from repro_torch.kernels.comm_fused import ops as tcf_ops
+from repro_torch.kernels.int8_quant import kernel as tiq
+from repro_torch.kernels.int8_quant import ops as tiq_ops
+
+TOL = 1e-6
+
+
+def _rows(r, g, seed):
+    return (np.random.default_rng(seed).normal(size=(r, g)) * 3.0
+            ).astype(np.float32)
+
+
+def _edge_rows():
+    """All-zero (post-ReLU), constant nonzero (scale floor 1e-12), half
+    zeros, and values on exact .5 rounding boundaries (mn 0, mx 254 ->
+    scale 1, zp -127, x/scale + zp = k + .5)."""
+    x = _rows(6, 256, 99) * 2.0
+    x[0] = 0.0
+    x[1] = 2.5
+    x[2] = np.maximum(x[2], 0.0)
+    x[3, 0], x[3, 1] = 0.0, 254.0
+    x[3, 2:] = np.arange(254, dtype=np.float32) + 0.5
+    x[4] = np.arange(256, dtype=np.float32) * 1e-3 - 7.0
+    return x
+
+
+SHAPES = [(1, 256), (300, 256), (7, 1), (5, 10), (37, 16), (3, 255)]
+CASES = [pytest.param(_rows(r, g, r * 1000 + g), id=f"{r}x{g}")
+         for r, g in SHAPES] + [pytest.param(_edge_rows(), id="edge")]
+
+
+@pytest.fixture(autouse=True)
+def _no_launches_on_cpu():
+    """On CPU tensors the wrappers take the plain path: no launch."""
+    before = {**tiq.LAUNCHES, **tcf.LAUNCHES}
+    yield
+    assert {**tiq.LAUNCHES, **tcf.LAUNCHES} == before
+    assert all(v == 0 for v in before.values())
+
+
+@pytest.mark.parametrize("x", CASES)
+def test_int8_quantize_bit_equal_to_oracle(x):
+    """The reference's CPU path runs its jnp oracle op by op: the port
+    is bit-equal to it."""
+    q_o, s_o, z_o = int8_quantize_ref(jnp.asarray(x))
+    q, s, z = tiq.int8_quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_o))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_o))
+    np.testing.assert_array_equal(z.numpy(), np.asarray(z_o))
+
+
+@pytest.mark.parametrize("x", CASES)
+def test_int8_quantize_matches_pallas(x):
+    """The jitted Pallas kernel (interpret mode) lets XLA turn the
+    constant division by 254 into a multiply by its reciprocal, so its
+    scale may sit 1 ulp from the true division the oracle, the port and
+    the CUDA kernel compute, and zp = -127 - mn/scale then moves by up to
+    2 ulp of (|zp| + 254) (measured: 8 ulp of a zp near 0); q is the
+    same on these inputs."""
+    q_r, s_r, z_r = int8_quantize_pallas(jnp.asarray(x), interpret=True)
+    q, s, z = tiq.int8_quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_r))
+    np.testing.assert_array_max_ulp(s.numpy(), np.asarray(s_r), maxulp=1)
+    eps = float(np.finfo(np.float32).eps)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_r), rtol=2 * eps,
+                               atol=2 * eps * 254)
+
+
+@pytest.mark.parametrize("x", CASES)
+def test_int8_dequantize_and_roundtrip_match_reference(x):
+    q_r, s_r, z_r = int8_quantize_pallas(jnp.asarray(x), interpret=True)
+    d_r = int8_dequantize_pallas(q_r, s_r, z_r, interpret=True)
+    d = tiq.int8_dequantize_rows(torch.tensor(np.asarray(q_r)),
+                                 torch.tensor(np.asarray(s_r)),
+                                 torch.tensor(np.asarray(z_r)))
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_r), atol=TOL,
+                               rtol=TOL)
+    rt = tcf.int8_roundtrip(torch.from_numpy(x))
+    rt_o = int8_dequantize_ref(*int8_quantize_ref(jnp.asarray(x)))
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rt_o), atol=TOL,
+                               rtol=TOL)
+    # against the Pallas kernel, the 1-ulp scale/zp difference above is
+    # amplified by |q - zp| <= 254: allow 1e-6 of the row's magnitude
+    rt_r = int8_roundtrip_pallas(jnp.asarray(x), interpret=True)
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rt_r),
+                               atol=TOL * max(1.0, float(np.abs(x).max())))
+
+
+@pytest.mark.parametrize("d,n,k", [(1, 8, 2), (5, 33, 4), (130, 17, 5)])
+@pytest.mark.parametrize("scale", [1.0, 33 / 4])
+def test_sparse_combine_matches_pallas(d, n, k, scale):
+    rng = np.random.default_rng(d * n + k)
+    y = rng.normal(size=(d, n)).astype(np.float32)
+    mask = np.zeros((d, n), np.float32)
+    for i in range(d):
+        mask[i, rng.choice(n, size=k, replace=False)] = 1.0
+    out_r, res_r = sparse_combine_pallas(jnp.asarray(y), jnp.asarray(mask),
+                                         scale, interpret=True)
+    out, res = tcf.sparse_combine(torch.from_numpy(y),
+                                  torch.from_numpy(mask), scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_r), atol=TOL)
+    np.testing.assert_allclose(res.numpy(), np.asarray(res_r), atol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(1,), (10,), (255,), (256,), (257,),
+                                   (4, 16, 16, 16), (2, 3, 5, 7)])
+def test_public_int8_ops_match_reference(shape):
+    """Any-rank tensors: grouping, tail edge-padding and the reshape back
+    are the reference's."""
+    x = np.random.default_rng(len(shape) + shape[-1]).normal(
+        size=shape).astype(np.float32)
+    q_r, s_r, z_r, shp = ref_int8_ops.int8_quantize(jnp.asarray(x))
+    q, s, z, shp_t = tiq_ops.int8_quantize(torch.from_numpy(x))
+    assert tuple(shp) == shp_t
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_r))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    np.testing.assert_array_equal(z.numpy(), np.asarray(z_r))
+    d_r = ref_int8_ops.int8_dequantize(q_r, s_r, z_r, shp)
+    d = tiq_ops.int8_dequantize(q, s, z, shp_t)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_r), atol=TOL)
+
+
+@pytest.mark.parametrize("d,n", [(1, 1), (3, 7), (4, 300), (2, 1000)])
+def test_fused_ops_match_reference(d, n):
+    rng = np.random.default_rng(7 * d + n)
+    x = rng.normal(size=(d, n)).astype(np.float32)
+    r = (rng.normal(size=(d, n)) * 0.1).astype(np.float32)
+    out_r, res_r = ref_fused_ops.fused_int8_roundtrip(jnp.asarray(x),
+                                                      jnp.asarray(r))
+    out, res = tcf_ops.fused_int8_roundtrip(torch.from_numpy(x),
+                                            torch.from_numpy(r))
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_r), atol=TOL)
+    np.testing.assert_allclose(res.numpy(), np.asarray(res_r), atol=TOL)
+    k = max(1, int(np.ceil(0.25 * n)))
+    out_r, res_r = ref_fused_ops.fused_sparse_roundtrip(
+        jnp.asarray(x), jnp.asarray(r), k=k)
+    out, res = tcf_ops.fused_sparse_roundtrip(
+        torch.from_numpy(x), torch.from_numpy(r), k=k)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_r), atol=TOL)
+    np.testing.assert_allclose(res.numpy(), np.asarray(res_r), atol=TOL)
+    idx = np.stack([rng.choice(n, size=k, replace=False) for _ in range(d)])
+    out_r, _ = ref_fused_ops.fused_sparse_roundtrip(
+        jnp.asarray(x), None, k=k, scale=n / k, indices=idx)
+    out, _ = tcf_ops.fused_sparse_roundtrip(
+        torch.from_numpy(x), None, k=k, scale=n / k, indices=idx)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_r), atol=TOL)
+    assert tcf_ops.int8_group_geometry(n) == \
+        ref_fused_ops.int8_group_geometry(n)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        tiq.int8_quantize_rows(torch.zeros(4, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        tiq.int8_quantize_rows(torch.zeros((2, 4), dtype=torch.float64))
+    with pytest.raises(ValueError):
+        tiq.int8_quantize_rows(torch.zeros((2, 4), device="meta"))
+    with pytest.raises(ValueError):
+        tcf.sparse_combine(torch.zeros((2, 4)), torch.zeros((2, 5)), 1.0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """On the card: each kernel against its plain version (run on the
+    machine with the card; chip_smoke.py does the same at the main
+    path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    dev = torch.device("cuda")
+    for x in [_rows(r, g, r + g) for r, g in SHAPES] + [_edge_rows()]:
+        xt = torch.from_numpy(x).to(dev)
+        q, s, z = tiq.int8_quantize_rows(xt)
+        qp, sp, zp = tiq.int8_quantize_plain(xt)
+        assert torch.equal(q, qp) and torch.equal(s, sp) \
+            and torch.equal(z, zp)
+        d = tiq.int8_dequantize_rows(q, s, z)
+        assert float((d - tiq.int8_dequantize_plain(q, s, z)).abs().max()) \
+            <= TOL
+        rt = tcf.int8_roundtrip(xt)
+        assert float((rt - tcf.int8_roundtrip_plain(xt)).abs().max()) <= TOL
+    y = torch.randn(4, 4099, device=dev)
+    mask = (torch.rand(4, 4099, device=dev) < 0.1).float()
+    out, res = tcf.sparse_combine(y, mask, 2.0)
+    op, rp = tcf.sparse_combine_plain(y, mask, 2.0)
+    assert torch.equal(out, op) and torch.equal(res, rp)
