@@ -24,8 +24,24 @@ non-zero exit:
 5. parity   the resnet8 reference config with the int8 codec on the
             card and on the CPU: simulated clock and wire bytes exactly
             equal, per-round losses within 1e-3.
+6. lm_kernels  flash attention and the SSD scan against their plain
+            versions on the card, f32 and bf16 (flash: the serving shape,
+            GQA with a window, D = 120, non-causal, S not a multiple of
+            64; ssd: the serving shape with a nonzero initial state, and
+            p = 64, n = 128), then cold / warm device time, plain time,
+            bound and, for flash, the time of PyTorch's SDPA at the
+            serving shape (a yardstick only; the port never calls it).
+7. serve    zamba2-1.2b at full width (38 layers, d_model 2048, vocab
+            32000) in bf16 with attn_impl="pallas", through
+            ``repro_torch.launch.serve.generate``: batch 4, prompt 2048,
+            32 greedy tokens; flash must launch exactly 6 times and the
+            SSD scan 32 times (one prefill). Prints prefill seconds,
+            decode tokens/s and peak memory.
+8. serve_parity  zamba2 at 6 layers (both block kinds), d_model 256, in
+            float32, card vs CPU: prefill and decode logits within 1e-4,
+            both sides stepped with the CPU's greedy tokens.
 
-Then a ``kernels`` line (all four kernels with their launch counts on
+Then a ``kernels`` line (all six kernels with their launch counts on
 the main path, times and bounds), the card's name and power limit as
 nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -44,8 +60,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 TOL = 1e-6                         # float outputs vs the plain version
 LOSS_TOL = 1e-3                    # card vs CPU per-round losses
+# kernel vs plain, (atol, rtol) by dtype: the reference's own kernel
+# tolerances (tests/test_kernels.py)
+FA_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 0.0)}
+SSD_TOL = {"float32": (2e-4, 1e-5), "bfloat16": (0.1, 3e-2)}
+SERVE_TOL = 1e-4                   # card vs CPU logits, float32
 
 
 def emit(phase: str, **kw):
@@ -118,12 +140,19 @@ def device_ms(fn, cold: bool, iters: int = 50):
             sorted(k[:60] for k in times))
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """-> (bound_ms, bound_by): the larger of the bytes over the memory
-    rate and the fp32 operations over the fp32 rate."""
+    rate and the operations over the rate of their type (fp32 by
+    default)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / FP32_OPS_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def excess(out, ref, atol: float, rtol: float) -> float:
+    """max(|out - ref| - rtol |ref|) - atol: <= 0 iff allclose."""
+    d = (out.float() - ref.float()).abs() - rtol * ref.float().abs()
+    return float(d.max()) - atol
 
 
 # ---------------------------------------------------------------- inputs
@@ -164,7 +193,8 @@ def sparse_inputs(dev, gen):
 def phase_device(torch, build):
     smi = nvidia_smi()
     t0 = time.time()
-    libs = build.build(["int8_quant", "comm_fused"])
+    libs = build.build(["int8_quant", "comm_fused", "flash_attention",
+                        "ssd_scan"])
     build_s = time.time() - t0
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -257,18 +287,25 @@ def phase_kernels(torch, dev):
     return timed
 
 
-def reset_launches():
+def _counters():
     from repro_torch.kernels.comm_fused import kernel as cf
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.int8_quant import kernel as iq
-    for counts in (iq.LAUNCHES, cf.LAUNCHES):
+    from repro_torch.kernels.ssd_scan import kernel as ss
+    return (iq.LAUNCHES, cf.LAUNCHES, fa.LAUNCHES, ss.LAUNCHES)
+
+
+def reset_launches():
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def launches() -> dict:
-    from repro_torch.kernels.comm_fused import kernel as cf
-    from repro_torch.kernels.int8_quant import kernel as iq
-    return {**iq.LAUNCHES, **cf.LAUNCHES}
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
 
 
 def run_train(args, tmp: Path, tag: str) -> dict:
@@ -325,6 +362,291 @@ def phase_parity(tmp):
          losses_cpu=lc, max_loss_diff=dl)
 
 
+# ------------------------------------------------- slice 2: the LM path
+FA_CASES = [  # (B, S, H, K, D, causal, window): model layout (B,S,H,D)
+    (4, 2048, 32, 32, 64, True, 0),     # zamba2 shared attention, prefill
+    (2, 1000, 16, 4, 64, True, 256),    # GQA G = 4 with a window
+    (1, 512, 8, 2, 120, True, 0),       # h2o-danube's head dim
+    (2, 384, 4, 4, 64, False, 0),       # non-causal
+    (2, 333, 4, 2, 80, True, 0),        # S not a multiple of 64
+]
+SSD_CASES = [  # (b, s, h, p, n, chunk)
+    (4, 2048, 64, 64, 64, 128),         # zamba2 SSM layers, prefill
+    (2, 1024, 8, 64, 128, 128),         # mamba2's p, n
+]
+
+
+def fa_inputs(torch, case, dtype, gen):
+    B, S, H, K, D, _, _ = case
+    return [(torch.randn(B, S, n, D, generator=gen)).to(dtype).cuda()
+            for n in (H, K, K)]
+
+
+def ssd_inputs(torch, case, dtype, gen):
+    """The reference kernel test's distributions: x, B, C normal, dt =
+    softplus(normal), A = -exp(normal), initial state normal * 0.1."""
+    import torch.nn.functional as F
+    b, s, h, p, n, _ = case
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+    x, B, C, init = r(b, s, h, p), r(b, s, n), r(b, s, n), r(b, h, p, n) * 0.1
+    dt, A = F.softplus(r(b, s, h)), -torch.exp(r(h))
+    return ([t.to(dtype).cuda() for t in (x,)] + [dt.cuda(), A.cuda()]
+            + [t.to(dtype).cuda() for t in (B, C, init)])
+
+
+def kept_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask keeps, per head."""
+    total = 0
+    for i in range(S):
+        hi = min(T - 1, i) if causal else T - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_lm_kernels(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import kernel as ss
+    gen = torch.Generator().manual_seed(1)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for case in FA_CASES:
+        causal, window = case[5], case[6]
+        for name, dt in dtypes.items():
+            q, k, v = fa_inputs(torch, case, dt, gen)
+            out = fa_ops.flash_attention(q, k, v, window=window,
+                                         causal=causal)
+            torch.cuda.synchronize()
+            ref = fa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     window=window).transpose(1, 2)
+            err = float((out.float() - ref.float()).abs().max())
+            ex = excess(out, ref, *FA_TOL[name])
+            emit("lm_kernel_check", name="flash_attention", case=case,
+                 dtype=name, max_abs_err=err, tol=FA_TOL[name])
+            if not ex <= 0:
+                fail(f"flash_attention {case} {name}: max abs err {err} "
+                     f"over {FA_TOL[name]}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            del q, k, v, out, ref
+    for case in SSD_CASES:
+        chunk = case[5]
+        for name, dt in dtypes.items():
+            x, dtt, A, B, C, init = ssd_inputs(torch, case, dt, gen)
+            y, f = ss.ssd_scan(x, dtt, A, B, C, chunk=chunk,
+                               initial_state=init)
+            torch.cuda.synchronize()
+            yp, fp = ss.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk,
+                                       initial_state=init)
+            err = max(float((y.float() - yp.float()).abs().max()),
+                      float((f.float() - fp.float()).abs().max()))
+            ex = max(excess(y, yp, *SSD_TOL[name]),
+                     excess(f, fp, *SSD_TOL[name]))
+            emit("lm_kernel_check", name="ssd_scan", case=case, dtype=name,
+                 max_abs_err=err, excess_over_tol=ex, tol=SSD_TOL[name])
+            if not ex <= 0:
+                fail(f"ssd_scan {case} {name}: outside {SSD_TOL[name]} "
+                     f"by {ex} (max abs err {err})")
+            worst["ssd_scan"] = max(worst["ssd_scan"], err)
+
+    # times at the serving shapes, bf16 as the serve phase runs them
+    bf = torch.bfloat16
+    case = FA_CASES[0]
+    B, S, H, K, D, causal, window = case
+    q, k, v = fa_inputs(torch, case, bf, gen)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+    fa_bytes = 4 * q.numel() * 2                   # q, k, v in, o out
+    fa_ops_n = 4 * B * H * D * kept_pairs(S, S, causal, window)
+    sc = SSD_CASES[0]
+    x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, bf, gen)
+    b_, s_, h_, p_, n_, l_ = sc
+    nc = s_ // l_
+    ssd_bytes = (2 * x.numel() * 2 + dtt.numel() * 4 + A.numel() * 4
+                 + 2 * Bm.numel() * 2 + 2 * init.numel() * 2)
+    ssd_ops_n = (b_ * nc * 2 * l_ * l_ * n_
+                 + b_ * h_ * nc * (2 * (l_ * (l_ + 1) // 2) * p_
+                                   + 2 * l_ * n_ * p_ + 2 * l_ * p_ * n_))
+    rows = {
+        "flash_attention": (
+            lambda: fa_ops.flash_attention(q, k, v, window=window,
+                                           causal=causal),
+            lambda: fa.attention_plain(qh, kh, vh, causal=causal,
+                                       window=window),
+            lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                   is_causal=True),
+            [B * H, S, D], bound(fa_bytes, fa_ops_n, BF16_OPS_PER_S),
+            fa_ops_n),
+        "ssd_scan": (
+            lambda: ss.ssd_scan(x, dtt, A, Bm, Cm, chunk=l_,
+                                initial_state=init),
+            lambda: ss.ssd_scan_plain(x, dtt, A, Bm, Cm, chunk=l_,
+                                      initial_state=init),
+            None, list(sc), bound(ssd_bytes, ssd_ops_n, BF16_OPS_PER_S),
+            ssd_ops_n),
+    }
+    timed = {}
+    for name, (kern, plain, lib, shape, (b_ms, b_by), n_ops) in rows.items():
+        p1, k1, k2, p2 = (device_ms(plain, True, 5), device_ms(kern, True, 5),
+                          device_ms(kern, True, 5), device_ms(plain, True, 5))
+        warm_k = device_ms(kern, False, 5)
+        lib_ms = None
+        if lib is not None:
+            l1, l2 = device_ms(lib, True, 5), device_ms(lib, True, 5)
+            lib_ms = min(l1[0], l2[0])
+        c_k = time_ms(kern, iters=10, warmup=2)
+        timed[name] = {"shape": shape, "ms": min(k1[0], k2[0]),
+                       "plain_ms": min(p1[0], p2[0]), "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms,
+                       "max_abs_err": worst[name]}
+        emit("kernel", name=name, **timed[name],
+             device_ms_runs=[k1[0], k2[0]],
+             plain_device_ms_runs=[p1[0], p2[0]], warm_l2_ms=warm_k[0],
+             call_ms=c_k, ops=n_ops,
+             achieved_tflops=n_ops / (min(k1[0], k2[0]) * 1e-3) / 1e12,
+             device_kernels=k1[1], plain_device_kernels=p1[1])
+    return timed
+
+
+ZAMBA = "zamba2-1.2b"
+
+
+def prefill_breakdown(torch, fn, wall_s: float) -> dict:
+    """Device time of one prefill by kernel group (profiler CUDA
+    activity), beside the host-clock time of a prefill."""
+    with torch.no_grad():
+        times = _profile(fn, 1)
+    groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
+              "elementwise_and_copies": 0.0}
+    for name, us in times.items():
+        low = name.lower()
+        if "flash_fwd" in low:
+            groups["flash_attention"] += us / 1e3
+        elif "ssd_scan" in low:
+            groups["ssd_scan"] += us / 1e3
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
+            groups["gemm"] += us / 1e3
+        else:
+            groups["elementwise_and_copies"] += us / 1e3
+    busy_ms = sum(groups.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms_by_group": groups, "device_busy_ms": busy_ms,
+            "wall_ms": wall_s * 1e3,
+            "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+
+
+def phase_serve(torch, dev):
+    """zamba2-1.2b at full width, bf16, through generate()."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import SplitModel
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(ZAMBA), attn_impl="pallas")
+    if not (cfg.n_layers == 38 and cfg.d_model == 2048
+            and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
+        fail(f"serve: {ZAMBA} is not the full-width config: {cfg}")
+    batch, prompt, steps = 4, 2048, 32
+    t0 = time.time()
+    params = SplitModel(cfg).init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=gen).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = generate(cfg, params, tokens, steps=steps)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    counts = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(out.shape) != (batch, steps):
+        fail(f"serve: generated shape {tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail("serve: generated tokens outside the vocabulary")
+    if counts["flash_attention"] != 6 or counts["ssd_scan"] != 32:
+        fail(f"serve: one prefill must launch flash 6 and ssd 32 times, "
+             f"got {counts}")
+
+    # second reading, outside the counted run: prefill alone, then the
+    # whole generate again; decode time = their difference
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, _, _ = tf.prefill(cfg, params, tokens, prompt + steps)
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        t0 = time.time()
+        out2 = generate(cfg, params, tokens, steps=steps)
+        torch.cuda.synchronize()
+        gen_s = time.time() - t0
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail("serve: non-finite prefill logits")
+    breakdown = prefill_breakdown(
+        torch, lambda: tf.prefill(cfg, params, tokens, prompt + steps),
+        prefill_s)
+    if not torch.equal(out, out2):
+        fail("serve: two greedy runs of the same prompt differ")
+    decode_s = gen_s - prefill_s
+    emit("serve", arch=ZAMBA, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+         batch=batch, prompt=prompt, gen=steps, launches=counts,
+         init_s=init_s, first_generate_s=first_s, prefill_s=prefill_s,
+         generate_s=gen_s, decode_s=decode_s,
+         decode_tok_per_s=batch * steps / decode_s,
+         prefill_tok_per_s=batch * prompt / prefill_s,
+         peak_mem_gb=peak_gb, sample=out[0, :8].tolist())
+    emit("serve_prefill_profile", **breakdown)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_parity(torch, dev):
+    """Card vs CPU on reduced zamba2 in float32: prefill and decode
+    logits, both sides stepped with the CPU's greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config, make_reduced
+    from repro_torch.models import SplitModel
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.tree import tree_map
+    cfg = dataclasses.replace(make_reduced(get_config(ZAMBA), n_layers=6),
+                              attn_impl="pallas")
+    if cfg.dtype != "float32" or {m for m, _ in cfg.pattern()} != {
+            "ssm", "shared_attn"}:
+        fail(f"serve_parity: unexpected reduced config {cfg.pattern()}")
+    p_cpu = SplitModel(cfg).init(0, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    batch, prompt, steps = 2, 200, 8
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=torch.Generator().manual_seed(3))
+    worst = 0.0
+    with torch.no_grad():
+        lc, cc, n = tf.prefill(cfg, p_cpu, tokens, prompt + steps)
+        lg, cg, _ = tf.prefill(cfg, p_gpu, tokens.to(dev), prompt + steps)
+        worst = float((lg.cpu() - lc).abs().max())
+        for t in range(steps):
+            tok = torch.argmax(lc[:, -1, :cfg.vocab_size], -1)[:, None]
+            lc, cc = tf.decode_step(cfg, p_cpu, tok, cc, n + t)
+            lg, cg = tf.decode_step(cfg, p_gpu, tok.to(dev), cg, n + t)
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+    emit("serve_parity", arch=cfg.name, n_layers=cfg.n_layers,
+         pattern=[m for m, _ in cfg.pattern()], batch=batch, prompt=prompt,
+         steps=steps, max_abs_logit_diff=worst, tol=SERVE_TOL,
+         logit_scale=float(lc.abs().max()))
+    if not worst <= SERVE_TOL:
+        fail(f"serve_parity: card vs CPU logits differ by {worst}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -355,19 +677,27 @@ def main() -> int:
                              ["--fused-comm", "--codec", "topk",
                               "--error-feedback"], ["sparse_combine"])
         phase_parity(tmp)
+    timed.update(phase_lm_kernels(torch))
+    served = phase_serve(torch, dev)
+    phase_serve_parity(torch, dev)
 
     main_path = {"int8_quantize": seq, "int8_dequantize": seq,
-                 "int8_roundtrip": f_int8, "sparse_combine": f_topk}
+                 "int8_roundtrip": f_int8, "sparse_combine": f_topk,
+                 "flash_attention": served, "ssd_scan": served}
     replaces = {
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:48",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:80",
         "int8_roundtrip": "src/repro/kernels/comm_fused/kernel.py:49",
         "sparse_combine": "src/repro/kernels/comm_fused/kernel.py:82",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:97",
+        "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:75",
     }
     source = {"int8_quantize": "src/repro_torch/csrc/int8_quant.cu",
               "int8_dequantize": "src/repro_torch/csrc/int8_quant.cu",
               "int8_roundtrip": "src/repro_torch/csrc/comm_fused.cu",
-              "sparse_combine": "src/repro_torch/csrc/comm_fused.cu"}
+              "sparse_combine": "src/repro_torch/csrc/comm_fused.cu",
+              "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+              "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k],
                 "launches": main_path[k][k],

@@ -1,5 +1,6 @@
 from repro_torch.configs.base import (CNNConfig, CommConfig, DriverConfig,
-                                      get_config, list_configs, register)
+                                      ModelConfig, get_config, list_configs,
+                                      make_reduced, register)
 
-__all__ = ["CNNConfig", "CommConfig", "DriverConfig", "get_config",
-           "list_configs", "register"]
+__all__ = ["ModelConfig", "CNNConfig", "CommConfig", "DriverConfig",
+           "get_config", "list_configs", "make_reduced", "register"]

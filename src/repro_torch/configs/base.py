@@ -1,22 +1,128 @@
-"""Config system: the CNN model config, the transport and round-loop
-knobs, and the registry.
+"""Config system: ModelConfig (decoder-style models), CNNConfig, the
+transport and round-loop knobs, the registry and reduced variants.
 
-Each paper-native CNN architecture (ResNet8 / VGG16 / MobileNet) has one
-file in this package exporting ``CONFIG``; the registry maps the public
-``--arch`` id to it. The decoder-style model families (``ModelConfig``)
-are not ported yet: their ids are known so that asking for one fails
-with a clear message instead of an unknown-arch error.
+Every architecture has one file in this package exporting ``CONFIG``;
+the registry maps the public ``--arch`` id to it. ``ModelConfig`` keeps
+every field of the reference's, the SPMD and MoE ones included, so a
+config carries across unchanged. The MoE / MLA architectures need
+``models/moe.py`` and latent attention, which are not ported yet: their
+ids are known so that asking for one fails with a clear message instead
+of an unknown-arch error.
 """
 from __future__ import annotations
 
 import dataclasses
 
-# decoder-style architectures of the reference whose model stack is not
-# ported yet (the LM families)
-LM_ARCHS = ("deepseek-v2-lite-16b", "gemma3-27b", "h2o-danube-3-4b",
-            "internlm2-1.8b", "internvl2-1b", "kimi-k2-1t-a32b",
-            "mamba2-2.7b", "musicgen-medium", "stablelm-3b",
-            "zamba2-1.2b")
+# decoder-style architectures of the reference whose modules (MoE,
+# latent attention) are not ported yet
+LM_ARCHS = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
+NOT_PORTED = "MoE and MLA: not yet ported (slice 3)"
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Configuration for a decoder-style model (dense / moe / ssm / hybrid /
+    vlm / audio backbones)."""
+
+    name: str
+    arch_type: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    vocab_size: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    # Per-layer mixer pattern; entries: 'attn' | 'swa' | 'ssm' | 'shared_attn'.
+    # FFN kind per layer: 'dense' | 'moe' | 'none' (parallel list, same length).
+    block_pattern: tuple = ()
+    ffn_pattern: tuple = ()
+    # attention
+    rope_theta: float = 10000.0
+    sliding_window: int = 0             # window size for 'swa' blocks
+    # MLA (deepseek-style latent attention)
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    qk_nope_head_dim: int = 0
+    v_head_dim: int = 0
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    router_aux_coef: float = 0.001
+    moe_dispatch_shards: int = 0        # >1: shard-local dispatch
+    moe_dispatch_axes: tuple = ()       # mesh axes of the shard dim
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 128
+    # shared-attention hybrid (zamba2-style): one shared block reused every
+    # `shared_attn_every` layers.
+    shared_attn_every: int = 0
+    # misc
+    act: str = "silu"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"             # activation / compute dtype
+    param_dtype: str = "float32"
+    remat: bool = False                 # recompute each block in training
+    remat_policy: str = ""              # '' (full) | 'dots'
+    scan_layers: bool = False           # scan over identical-block runs
+    # 'xla' | 'pallas': 'pallas' routes prefill attention and the SSD
+    # scan through the hand-written kernels (CUDA on a CUDA tensor, their
+    # plain versions on a CPU tensor); 'xla' runs the plain counterpart
+    # of the reference's XLA path
+    attn_impl: str = "xla"
+    # modality frontend stub ('' | 'audio' | 'vision'): precomputed
+    # frame/patch embeddings of shape (B, n_prefix, d_model).
+    frontend: str = ""
+    n_frontend_tokens: int = 0
+    # sharding hints (the SPMD layer, a later slice)
+    fsdp_ff: bool = False
+    source: str = ""                    # citation / model card
+
+    # ---- derived ----
+    @property
+    def vocab_padded(self) -> int:
+        return _round_up(self.vocab_size, 128)
+
+    @property
+    def d_inner(self) -> int:           # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        if self.mla:
+            return self.qk_rope_head_dim + self.qk_nope_head_dim
+        return self.head_dim
+
+    def __post_init__(self):
+        if self.block_pattern:
+            if (len(self.block_pattern) != self.n_layers
+                    or len(self.ffn_pattern) != self.n_layers):
+                raise ValueError(f"{self.name}: block/ffn pattern length "
+                                 f"!= n_layers")
+        if self.ssm_state and self.d_inner % self.ssm_head_dim:
+            raise ValueError(f"{self.name}: d_inner % ssm_head_dim != 0")
+
+    def pattern(self):
+        """(mixer, ffn) kind per layer, defaulting to all-attn/all-dense."""
+        bp = self.block_pattern or ("attn",) * self.n_layers
+        fp = self.ffn_pattern or ("dense",) * self.n_layers
+        return tuple(zip(bp, fp))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +230,74 @@ class DriverConfig:
     cluster_quorum: float = 1.0         # per-cluster close quantile
 
 
+def make_reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
+                 vocab: int = 512) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests (<=2 layers,
+    d_model<=512, <=4 experts)."""
+    d_model = min(d_model, cfg.d_model)
+    scale = d_model / cfg.d_model
+
+    def sc(x, m=8):
+        return max(m, _round_up(int(x * scale), m)) if x else 0
+
+    n_heads = max(2, min(cfg.n_heads, d_model // 64)) if cfg.n_heads else 0
+    head_dim = 64 if cfg.n_heads else 0
+    n_kv = 0
+    if cfg.n_kv_heads:
+        n_kv = max(1, n_heads * cfg.n_kv_heads // max(cfg.n_heads, 1))
+        while n_heads % n_kv:
+            n_kv -= 1
+    bp = cfg.block_pattern and _reduce_pattern(cfg.block_pattern, n_layers)
+    fp = cfg.ffn_pattern and _reduce_pattern(cfg.ffn_pattern, n_layers)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        n_layers=n_layers,
+        d_model=d_model,
+        vocab_size=min(cfg.vocab_size, vocab),
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=sc(cfg.d_ff, 16),
+        block_pattern=tuple(bp),
+        ffn_pattern=tuple(fp),
+        kv_lora_rank=sc(cfg.kv_lora_rank, 8),
+        q_lora_rank=sc(cfg.q_lora_rank, 8),
+        qk_rope_head_dim=32 if cfg.mla else 0,
+        qk_nope_head_dim=32 if cfg.mla else 0,
+        v_head_dim=64 if cfg.mla else 0,
+        n_experts=min(cfg.n_experts, 4),
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+        top_k=min(cfg.top_k, 2),
+        moe_d_ff=sc(cfg.moe_d_ff, 16),
+        ssm_state=min(cfg.ssm_state, 32),
+        ssm_head_dim=(min(cfg.ssm_head_dim, 32) if cfg.ssm_state
+                      else cfg.ssm_head_dim),
+        ssm_chunk=32,
+        shared_attn_every=(min(cfg.shared_attn_every, 2)
+                           if cfg.shared_attn_every else 0),
+        sliding_window=(min(cfg.sliding_window, 64) if cfg.sliding_window
+                        else 0),
+        n_frontend_tokens=(min(cfg.n_frontend_tokens, 16) if cfg.frontend
+                           else 0),
+        remat=False,
+        dtype="float32",
+    )
+
+
+def _reduce_pattern(pattern, n_layers):
+    """Keep the flavour of a layer pattern in n_layers slots (ensure at least
+    one of each distinct kind appears when possible)."""
+    kinds = []
+    for k in pattern:
+        if k not in kinds:
+            kinds.append(k)
+    out = list(kinds[:n_layers])
+    while len(out) < n_layers:
+        out.append(pattern[len(out) % len(pattern)])
+    return tuple(out[:n_layers])
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -139,8 +313,8 @@ def get_config(name: str):
     _ensure_loaded()
     if name in LM_ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is an LM family, which is not yet ported "
-            f"(slice 2); ported archs: {sorted(_REGISTRY)}")
+            f"arch {name!r}: {NOT_PORTED}; ported archs: "
+            f"{sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -159,4 +333,7 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from repro_torch.configs import mobilenet, resnet8, vgg16  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_27b, h2o_danube3_4b, internlm2_1p8b, internvl2_1b,
+        mamba2_2p7b, mobilenet, musicgen_medium, resnet8, stablelm_3b,
+        vgg16, zamba2_1p2b)

@@ -1,0 +1,137 @@
+"""Mamba2 SSD chunked scan (single B/C group).
+
+Per chunk of ``chunk`` rows, with ``cs = cumsum(dt * A)`` in the chunk:
+
+    y     = (L o C Bᵀ)(dt o x) + exp(cs) o (C stateᵀ)
+    state = exp(cs_last) state + xᵀ (B o exp(cs_last - cs) dt)
+
+``L[i, j] = exp(cs_i - cs_j)`` for ``j <= i``, else 0. The (p, n) state
+is carried in f32 from the initial state; y and the final state come
+back in x's dtype. x, B, C and the initial state share one dtype; dt
+and A are f32, as ``ssm_apply`` hands them over.
+
+On a CUDA tensor the wrapper launches the hand-written Hopper kernel
+(``csrc/ssd_scan.cu``) or raises; on a CPU tensor it runs the plain
+version beside it, which is the same per-chunk arithmetic with the f32
+state. (The model's own oracle, ``models/ssm.ssd_scan_ref``, carries its
+state in x's dtype; both exist.) ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_CHUNK = 128
+MAX_DIM = 128                   # p and n
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _P],
+}
+
+LAUNCHES = {"ssd_scan": 0}
+
+
+def _lib():
+    return _build.load("ssd_scan", _SIGNATURES)
+
+
+# ----------------------------------------------------------- plain version
+def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
+    """x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n), initial_state
+    (b,h,p,n) or None -> (y (b,s,h,p), final_state (b,h,p,n))."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc, l = s // chunk, chunk
+    f32 = torch.float32
+    xc = x.to(f32).reshape(b, nc, l, h, p)
+    dtc = dt.to(f32).reshape(b, nc, l, h)
+    Bc = B.to(f32).reshape(b, nc, l, n)
+    Cc = C.to(f32).reshape(b, nc, l, n)
+    A = A.to(f32)
+    state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    tri = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nc):
+        xi, dti, Bi, Ci = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        cs = torch.cumsum(dti * A, dim=1)                  # (b,l,h)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]         # (b,i,j,h)
+        L = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        scores = torch.einsum("bin,bjn->bij", Ci, Bi)
+        W = L * scores[..., None]
+        y = torch.einsum("bijh,bjhp->bihp", W, xi * dti[..., None])
+        y_off = torch.einsum("bin,bhpn->bihp", Ci, state)
+        y = y + y_off * torch.exp(cs)[..., None]
+        ys.append(y)
+        tail = torch.exp(cs[:, -1:] - cs) * dti              # (b,l,h)
+        upd = torch.einsum("bjhp,bjhn->bhpn", xi,
+                           Bi[:, :, None, :] * tail[..., None])
+        state = state * torch.exp(cs[:, -1])[..., None, None] + upd
+    y = torch.stack(ys, dim=1).reshape(b, s, h, p)
+    return y.to(x.dtype), state.to(x.dtype)
+
+
+# ----------------------------------------------------------------- wrapper
+def _check(x, dt, A, B, C, chunk, initial_state):
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x must be (b,s,h,p), got "
+                         f"{tuple(x.shape)}")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
+            or tuple(B.shape) != (b, s, n) or tuple(C.shape) != (b, s, n)):
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"ssd_scan: s={s} is not a multiple of chunk "
+                         f"{chunk}")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd_scan: x, B, C must share float32 or bfloat16,"
+                         f" got {x.dtype} {B.dtype} {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"ssd_scan: dt and A must be float32, got "
+                         f"{dt.dtype} {A.dtype}")
+    tensors = [x, dt, A, B, C]
+    if initial_state is not None:
+        if (tuple(initial_state.shape) != (b, h, p, n)
+                or initial_state.dtype != x.dtype):
+            raise ValueError(f"ssd_scan: initial_state must be "
+                             f"{(b, h, p, n)} {x.dtype}, got "
+                             f"{tuple(initial_state.shape)} "
+                             f"{initial_state.dtype}")
+        tensors.append(initial_state)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("ssd_scan: inputs on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    return tensors
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
+    """Kernel wrapper of ``ssd_scan_plain``."""
+    tensors = _check(x, dt, A, B, C, chunk, initial_state)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                              initial_state=initial_state)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if chunk > MAX_CHUNK or p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"ssd_scan: chunk {chunk}, p {p}, n {n}: the "
+                         f"kernel takes chunk, p, n <= 128")
+    x, dt, A, B, C, *init = [t.contiguous() for t in tensors]
+    y = torch.empty_like(x)
+    fs = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _build.check(_lib().ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), init[0].data_ptr() if init else None,
+            y.data_ptr(), fs.data_ptr(), _DTYPES[x.dtype], b, s, h, p, n,
+            chunk, _build.stream_ptr(x)), "ssd_scan")
+        LAUNCHES["ssd_scan"] += 1
+    return y, fs

@@ -1,0 +1,181 @@
+"""Attention: grouped-query attention (full / sliding-window), with train /
+prefill / decode paths and KV caches.
+
+``cfg.attn_impl == "pallas"`` sends train / prefill attention (S > 1)
+through the flash attention kernel wrapper (``kernels/flash_attention``):
+its CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
+``"xla"`` runs the plain counterpart of the reference's XLA path: the
+same masked-softmax arithmetic in f32 over q blocks, a plain loop where
+the reference scans with a per-block ``jax.checkpoint`` (a memory knob
+of its training path; the numbers are the same). Decode always takes
+the plain path, as in the reference.
+
+Cache layouts (batch-first, sequence second):
+  full attn : {'k': (B, S, K, D), 'v': (B, S, K, D)}
+  swa       : ring buffer {'k': (B, W, K, D), 'v': ..., 'slot_pos': (W,)}
+
+Latent attention (MLA, deepseek / kimi) is not ported yet (slice 3).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import NOT_PORTED
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.params import ParamDef
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# defs
+# ---------------------------------------------------------------------------
+def attn_defs(cfg):
+    if cfg.mla:
+        raise NotImplementedError(NOT_PORTED)
+    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamDef((d, H, D), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, K, D), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, K, D), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, D, d), ("heads", "head_dim", "embed")),
+    }
+
+
+# ---------------------------------------------------------------------------
+# core attention math (grouped, blockwise)
+# ---------------------------------------------------------------------------
+def _pick_q_block(S: int) -> int:
+    for b in (1024, 512, 256, 128):
+        if S % b == 0 and S > b:
+            return b
+    return S
+
+
+def grouped_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+                      causal: bool = True, impl: str = "xla"):
+    """q: (B,S,H,Dq) k: (B,T,K,Dq) v: (B,T,K,Dv); GQA via H = K*G.
+
+    Returns (B,S,H,Dv). Positions are 1-D int arrays (right-aligned, no
+    padding semantics — masking is purely positional).
+    """
+    B, S, H, Dq = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(Dq)
+
+    if impl == "pallas" and S > 1:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        return fa_ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
+                                      causal=causal)
+
+    qg = q.reshape(B, S, K, G, Dq)
+    kf, vf = k.to(torch.float32), v
+
+    def block(q_blk, qp_blk):
+        s = torch.einsum("bskgd,btkd->bkgst", q_blk.to(torch.float32),
+                         kf) * scale
+        mask = torch.ones((q_blk.shape[1], T), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= qp_blk[:, None] >= k_pos[None, :]
+        if window:
+            mask &= qp_blk[:, None] - k_pos[None, :] < window
+        mask &= k_pos[None, :] >= 0
+        s = torch.where(mask, s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgst,btkd->bskgd", w.to(vf.dtype), vf)
+        return o.reshape(B, q_blk.shape[1], H, vf.shape[-1])
+
+    qb = _pick_q_block(S)
+    return torch.cat([block(qg[:, i:i + qb], q_pos[i:i + qb])
+                      for i in range(0, S, qb)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GQA paths
+# ---------------------------------------------------------------------------
+def init_attn_cache(cfg, kind: str, batch: int, max_len: int, dtype,
+                    device):
+    if cfg.mla:
+        raise NotImplementedError(NOT_PORTED)
+    K, D = cfg.n_kv_heads, cfg.head_dim
+    L = min(max_len, cfg.sliding_window) if kind == "swa" else max_len
+    cache = {"k": torch.zeros((batch, L, K, D), dtype=dtype, device=device),
+             "v": torch.zeros((batch, L, K, D), dtype=dtype, device=device)}
+    if kind == "swa":
+        cache["slot_pos"] = torch.full((L,), -1, dtype=torch.int32,
+                                       device=device)
+    return cache
+
+
+def gqa_apply(cfg, kind, p, x, positions, cache=None, cache_index=None):
+    """x: (B,S,d). Train: cache None. Prefill: cache dict is filled and
+    returned. Decode: S==1, cache_index = current position (int).
+
+    Unlike the reference's functional updates, prefill and decode write
+    the new keys and values into the cache tensors in place (a copy of
+    the whole cache per step would cost its size in memory traffic); the
+    returned cache is the one passed in, or the new ring buffer."""
+    B, S, d = x.shape
+    window = cfg.sliding_window if kind == "swa" else 0
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:                                   # train
+        out = grouped_attention(q, k, v, positions, positions,
+                                window=window, causal=True,
+                                impl=cfg.attn_impl)
+    elif S > 1:                                         # prefill
+        if window and cache["k"].shape[1] < S:          # fill ring buffer
+            # keep the last W positions, laid out so slot == pos % W (the
+            # invariant decode appends rely on)
+            W = cache["k"].shape[1]
+            slots = positions[S - W:] % W
+            order = torch.argsort(slots)
+            cache = {"k": k[:, S - W:][:, order], "v": v[:, S - W:][:, order],
+                     "slot_pos": positions[S - W:][order].to(torch.int32)}
+        else:
+            L = cache["k"].shape[1]
+            cache = dict(cache)
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+            if "slot_pos" in cache:
+                pos = positions.to(torch.int32)
+                cache["slot_pos"] = (
+                    torch.cat([pos, pos.new_full((L - S,), -1)])
+                    if L > S else pos[:L])
+        out = grouped_attention(q, k, v, positions, positions,
+                                window=window, causal=True,
+                                impl=cfg.attn_impl)
+    else:                                               # decode, S == 1
+        idx = int(cache_index)
+        if window:
+            W = cache["k"].shape[1]
+            slot = idx % W
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
+            cache["slot_pos"][slot] = idx
+            k_pos = cache["slot_pos"]
+        else:
+            cache["k"][:, idx] = k[:, 0]
+            cache["v"][:, idx] = v[:, 0]
+            T = cache["k"].shape[1]
+            ar = torch.arange(T, device=x.device)
+            k_pos = torch.where(ar <= idx, ar, -1)
+        out = grouped_attention(q, cache["k"], cache["v"], positions, k_pos,
+                                window=window, causal=not window, impl="xla")
+
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def attn_apply(cfg, kind, p, x, positions, cache=None, cache_index=None):
+    if cfg.mla:
+        raise NotImplementedError(NOT_PORTED)
+    return gqa_apply(cfg, kind, p, x, positions, cache, cache_index)

@@ -21,14 +21,15 @@ import torch
 
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 class ParamDef(NamedTuple):
     shape: tuple
     axes: tuple                 # logical axis name per dim
-    init: str = "fan_in"        # fan_in | conv | zeros | ones
+    init: str = "fan_in"        # fan_in | conv | normal | zeros | ones |
+                                # ssm_a | ssm_dt
     scale: float = 0.02
     dtype: str = ""             # '' -> model param_dtype
 
@@ -38,12 +39,22 @@ def is_def(x) -> bool:
 
 
 def _materialize(d: ParamDef, gen: torch.Generator, param_dtype: str):
-    dtype = _DTYPES[d.dtype or param_dtype]
+    dtype = DTYPES[d.dtype or param_dtype]
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype)
-    if d.init == "fan_in":
+    if d.init == "ssm_a":        # A_log: A in [1, 16]
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32)
+        return torch.log(1.0 + 15.0 * u).to(dtype)
+    if d.init == "ssm_dt":       # dt_bias: softplus^-1(dt), dt in [1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32)
+        dt = torch.exp(lo + (hi - lo) * u)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if d.init == "normal":
+        std = d.scale
+    elif d.init == "fan_in":
         fan_in = d.shape[0] if d.shape else 1
         std = 1.0 / math.sqrt(max(fan_in, 1))
     elif d.init == "conv":       # HWIO conv weight: fan_in = H*W*I

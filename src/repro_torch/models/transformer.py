@@ -1,0 +1,193 @@
+"""Composable decoder assembly.
+
+Blocks are built from the config's (mixer, ffn) pattern; the stack exposes
+range-application (``apply_blocks(lo, hi)``) which is what S²FL's sliding
+split consumes: the client portion is ``embed + blocks[:s]``, the server
+portion is ``blocks[s:] + final_norm + head``.
+
+``cfg.scan_layers`` and ``cfg.remat`` are compile and training-memory
+knobs of the reference (``lax.scan`` over identical blocks, per-block
+``jax.checkpoint``). Both compute the same numbers as the plain loop
+over blocks, which is what PyTorch runs eagerly here, so the fields are
+carried but not read. MoE feed-forward layers are not ported yet
+(slice 3).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import NOT_PORTED
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (cross_entropy, embed, embed_defs,
+                                       head_defs, mlp, mlp_defs, rmsnorm,
+                                       rmsnorm_defs)
+from repro_torch.models.params import DTYPES
+
+
+# ---------------------------------------------------------------------------
+# defs
+# ---------------------------------------------------------------------------
+def _block_defs(cfg, mixer: str, ffn: str):
+    d = cfg.d_model
+    defs = {"norm1": rmsnorm_defs(d)}
+    if mixer == "ssm":
+        defs["mixer"] = ssm_mod.ssm_defs(cfg)
+    elif mixer in ("attn", "swa"):
+        defs["mixer"] = attn_mod.attn_defs(cfg)
+    elif mixer != "shared_attn":               # shared: cfg-level slot
+        raise ValueError(mixer)
+    if ffn == "dense":
+        defs["norm2"] = rmsnorm_defs(d)
+        defs["ffn"] = mlp_defs(d, cfg.d_ff)
+    elif ffn == "moe":
+        raise NotImplementedError(NOT_PORTED)
+    return defs
+
+
+def model_defs(cfg):
+    defs = {
+        "embed": embed_defs(cfg.vocab_padded, cfg.d_model),
+        "blocks": [_block_defs(cfg, m, f) for m, f in cfg.pattern()],
+        "final_norm": rmsnorm_defs(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = head_defs(cfg.d_model, cfg.vocab_padded)
+    if any(m == "shared_attn" for m, _ in cfg.pattern()):
+        defs["shared_attn"] = {
+            "mixer": attn_mod.attn_defs(cfg),
+            "norm2": rmsnorm_defs(cfg.d_model),
+            "ffn": mlp_defs(cfg.d_model, cfg.d_ff),
+        }
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# forward pieces (split-aware)
+# ---------------------------------------------------------------------------
+def apply_embed(cfg, params, tokens, prefix_embeds=None):
+    """tokens: (B,S) int; optional prefix_embeds (B,P,d) from a modality
+    frontend stub. Returns hidden (B, P+S, d)."""
+    h = embed(params["embed"], tokens, DTYPES[cfg.dtype])
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def _apply_block_kind(cfg, mixer, ffn, bp, shared, h, positions, cache,
+                      cache_index):
+    """One block of a given (mixer, ffn) kind with explicit params `bp`
+    (and the config-level shared-attention params for zamba2-style
+    blocks)."""
+    if mixer == "shared_attn":
+        sp = shared
+        a, cache = attn_mod.attn_apply(cfg, "attn", sp["mixer"],
+                                       rmsnorm(bp["norm1"], h, cfg.norm_eps),
+                                       positions, cache, cache_index)
+        h = h + a
+        f = mlp(sp["ffn"], rmsnorm(sp["norm2"], h, cfg.norm_eps), cfg.act)
+        return h + f, cache
+
+    if mixer == "ssm":
+        a, cache = ssm_mod.ssm_apply(cfg, bp["mixer"],
+                                     rmsnorm(bp["norm1"], h, cfg.norm_eps),
+                                     cache)
+    else:
+        a, cache = attn_mod.attn_apply(cfg, mixer, bp["mixer"],
+                                       rmsnorm(bp["norm1"], h, cfg.norm_eps),
+                                       positions, cache, cache_index)
+    h = h + a
+    if ffn == "dense":
+        h = h + mlp(bp["ffn"], rmsnorm(bp["norm2"], h, cfg.norm_eps), cfg.act)
+    elif ffn == "moe":
+        raise NotImplementedError(NOT_PORTED)
+    return h, cache
+
+
+def apply_blocks(cfg, params, h, lo: int, hi: int, positions,
+                 caches=None, cache_index=None, train: bool = False):
+    """Apply blocks [lo, hi). caches: per-layer list (len n_layers) or None.
+    Returns (h, caches, aux_sum); aux is the MoE router loss, 0 without
+    MoE layers. ``train`` selects the reference's remat, a memory knob
+    with the same numbers, so it changes nothing here."""
+    pat = cfg.pattern()
+    shared = params.get("shared_attn")
+    caches = list(caches) if caches is not None else None
+    for i in range(lo, hi):
+        mixer, ffn = pat[i]
+        c_i = caches[i] if caches is not None else None
+        h, c_i = _apply_block_kind(cfg, mixer, ffn, params["blocks"][i],
+                                   shared, h, positions, c_i, cache_index)
+        if caches is not None:
+            caches[i] = c_i
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, caches, aux
+
+
+def apply_head(cfg, params, h):
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["tok"].to(h.dtype).T
+    return h @ params["head"]["w"].to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# whole-model entry points
+# ---------------------------------------------------------------------------
+def _positions(n: int, device):
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def forward(cfg, params, tokens, prefix_embeds=None, train: bool = False):
+    """Full forward: logits (B, P+S, vocab_padded), aux loss."""
+    h = apply_embed(cfg, params, tokens, prefix_embeds)
+    h, _, aux = apply_blocks(cfg, params, h, 0, cfg.n_layers,
+                             _positions(h.shape[1], h.device), train=train)
+    return apply_head(cfg, params, h), aux
+
+
+def lm_loss(cfg, params, batch, train: bool = True):
+    """batch: {'tokens': (B,S), 'labels': (B,S), optional 'prefix': (B,P,d)}.
+    labels[i] is the target for position i (already shifted); -100 ignored."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("prefix"), train=train)
+    P = logits.shape[1] - batch["tokens"].shape[1]
+    if P:
+        logits = logits[:, P:]
+    ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def init_caches(cfg, batch: int, max_len: int, *, device):
+    dtype = DTYPES[cfg.dtype]
+    caches = []
+    for mixer, _ in cfg.pattern():
+        if mixer == "ssm":
+            caches.append(ssm_mod.init_ssm_cache(cfg, batch, dtype, device))
+        else:
+            caches.append(attn_mod.init_attn_cache(cfg, mixer, batch,
+                                                   max_len, dtype, device))
+    return caches
+
+
+def prefill(cfg, params, tokens, max_len: int, prefix_embeds=None):
+    """Run the prompt, build caches. Returns (last_logits, caches, n_prefill)."""
+    h = apply_embed(cfg, params, tokens, prefix_embeds)
+    S = h.shape[1]
+    caches = init_caches(cfg, tokens.shape[0], max_len, device=h.device)
+    h, caches, _ = apply_blocks(cfg, params, h, 0, cfg.n_layers,
+                                _positions(S, h.device), caches=caches)
+    logits = apply_head(cfg, params, h[:, -1:])
+    return logits, caches, S
+
+
+def decode_step(cfg, params, token, caches, index: int):
+    """One decode step. token: (B,1) int, index: the current position.
+    Returns (logits (B,1,V), caches); attention caches are updated in
+    place."""
+    h = apply_embed(cfg, params, token)
+    positions = torch.tensor([int(index)], dtype=torch.int32,
+                             device=h.device)
+    h, caches, _ = apply_blocks(cfg, params, h, 0, cfg.n_layers, positions,
+                                caches=caches, cache_index=int(index))
+    return apply_head(cfg, params, h), caches

@@ -1,0 +1,100 @@
+"""The port's LM kernels against their plain versions, on the card.
+
+Imports torch and the port only (the card's machine has no JAX, and
+this file needs no conftest), so it runs there as
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
+        tests/test_torch_cuda.py
+
+and skips everywhere else: a CUDA kernel has no CPU mode. Tolerances
+are the reference's kernel tolerances (tests/test_kernels.py): flash
+atol 2e-5 in f32 and 2e-2 in bf16; ssd (atol 2e-4, rtol 1e-5) in f32
+and (0.1, 3e-2) in bf16."""
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.ssd_scan import kernel as ssd
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FA_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 0.0)}
+SSD_TOL = {"float32": (2e-4, 1e-5), "bfloat16": (0.1, 3e-2)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+FA_CASES = [  # (B, H, K, S, T, D, Dv, causal, window)
+    (1, 128, 128, 2048, 2048, 64, 64, True, 0),     # the serving shape
+    (2, 8, 2, 300, 300, 64, 64, True, 128),         # GQA + window
+    (1, 4, 4, 200, 200, 120, 120, True, 0),         # h2o-danube head dim
+    (2, 6, 2, 130, 130, 64, 64, False, 0),          # non-causal, ragged S
+    (1, 2, 1, 100, 60, 80, 48, True, 0),            # S != T, D != Dv
+    (1, 2, 2, 40, 8, 16, 24, False, 4),             # fully-masked rows
+    (1, 2, 2, 70, 70, 36, 36, True, 0),             # D % 8 != 0: loads
+                                                    # value by value
+    (1, 2, 1, 100, 100, 200, 160, True, 0),         # bf16 D > 128: the
+                                                    # fp32-core path
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,T,D,Dv,causal,window", FA_CASES)
+def test_flash_kernel_matches_plain(card, B, H, K, S, T, D, Dv, causal,
+                                    window, dtype):
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(_DTYPES[dtype]).to(card)
+    q, k, v = r(B, H, S, D), r(B, K, T, D), r(B, K, T, Dv)
+    n = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n + 1
+    plain = fa.attention_plain(q, k, v, causal=causal, window=window)
+    atol, rtol = FA_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                               rtol=rtol)
+
+
+SSD_CASES = [  # (b, s, h, p, n, chunk)
+    (4, 2048, 64, 64, 64, 128),       # the serving shape (zamba2-1.2b)
+    (1, 512, 4, 64, 128, 128),        # mamba2's state size
+    (2, 256, 3, 32, 16, 32),
+    (1, 256, 2, 128, 128, 64),
+    (1, 192, 2, 24, 20, 64),          # n, p % 8 != 0: loads value by value
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, dtype):
+    """The reference kernel test's distributions (normal x, B, C;
+    softplus dt; A = -exp(normal); initial state normal * 0.1)."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    low = _DTYPES[dtype]
+    x, B, C = (r(b, s, h, p).to(low), r(b, s, n).to(low),
+               r(b, s, n).to(low))
+    dt, A = F.softplus(r(b, s, h)), -torch.exp(r(h))
+    init = (r(b, h, p, n) * 0.1).to(low)
+    x, dt, A, B, C, init = (t.to(card) for t in (x, dt, A, B, C, init))
+    n0 = ssd.LAUNCHES["ssd_scan"]
+    y, f = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd_scan"] == n0 + 1
+    y_p, f_p = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=init)
+    atol, rtol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(f.float(), f_p.float(), atol=atol, rtol=rtol)

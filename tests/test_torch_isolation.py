@@ -1,21 +1,26 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the reference package, the trainer
-imports with both blocked, it runs on the card unless the CPU is asked
-for, and the flags of modules not ported yet raise before any work."""
+``chip_smoke.py``) imports JAX, the reference package or ``ml_dtypes``,
+the trainer and the server import with JAX and the reference blocked,
+they run on the card unless the CPU is asked for, and the flags and
+archs of modules not ported yet raise before any work."""
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import dataclasses
+
 import pytest
 import torch
 
-from repro_torch.launch import train
+from repro_torch.configs import get_config, make_reduced
+from repro_torch.launch import serve, train
+from repro_torch.models import SplitModel
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -44,6 +49,9 @@ def test_trainer_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.train\n"
             "import repro_torch.core.engine\n"
             "import repro_torch.kernels.comm_fused.ops\n"
+            "import repro_torch.launch.serve\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.ssd_scan.ops\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -87,3 +95,35 @@ def test_cpu_run_when_asked(tmp_path):
     train.main(["--device", "cpu", *SMALL, "--codec", "int8",
                 "--out", str(out)])
     assert out.exists()
+
+
+def test_server_defaults_to_cuda_and_never_falls_back(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default runs there")
+    assert serve.build_parser().get_default("device") == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "zamba2-1.2b", "--gen", "2"])
+    assert "generated" not in capsys.readouterr().out
+
+
+def test_server_cpu_run_when_asked(capsys):
+    out = serve.main(["--device", "cpu", "--arch", "zamba2-1.2b",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    assert "generated" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+def test_moe_and_mla_archs_raise_naming_slice_3(arch):
+    with pytest.raises(NotImplementedError, match="not yet ported.*slice 3"):
+        get_config(arch)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        serve.main(["--device", "cpu", "--arch", arch])
+
+
+@pytest.mark.parametrize("field", [{"mla": True}, {"ffn_pattern": ("moe",)}])
+def test_moe_and_mla_configs_raise_naming_slice_3(field):
+    cfg = dataclasses.replace(
+        make_reduced(get_config("internlm2-1.8b"), n_layers=1), **field)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        SplitModel(cfg)
