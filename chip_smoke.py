@@ -11,10 +11,11 @@ non-zero exit:
 2. kernels  each kernel against its plain PyTorch version on the card
             (edge shapes and the main path's shapes): int8 q/scale/zp
             exactly equal, float outputs within 1e-6. Device time per
-            call of the kernel and of the plain version (profiler CUDA
-            activity) with the L2 flushed before each call and warm,
-            the time per call as the host sees it (CUDA events around
-            one call on an idle card), and the bound.
+            call of the kernel and of the plain version (CUDA events
+            around a run of calls that a spin kernel lets the host queue
+            in full) with the L2 flushed before each call and warm, the
+            time per call as the host sees it (CUDA events around one
+            call on an idle card), and the bound.
 3. train    ``repro_torch.launch.train`` on vgg16 (full width), int8
             codecs on every leg with error feedback, sequential path:
             the quantize/dequantize kernels must have launched.
@@ -24,13 +25,17 @@ non-zero exit:
 5. parity   the resnet8 reference config with the int8 codec on the
             card and on the CPU: simulated clock and wire bytes exactly
             equal, per-round losses within 1e-3.
-6. lm_kernels  flash attention and the SSD scan against their plain
-            versions on the card, f32 and bf16 (flash: the serving shape,
-            GQA with a window, D = 120, non-causal, S not a multiple of
-            64; ssd: the serving shape with a nonzero initial state, and
-            p = 64, n = 128), then cold / warm device time, plain time,
-            bound and, for flash, the time of PyTorch's SDPA at the
-            serving shape (a yardstick only; the port never calls it).
+6. lm_kernels  flash attention, the SSD scan and moe_gmm against their
+            plain versions on the card (flash, f32 and bf16: the zamba2
+            and deepseek MLA serving shapes, GQA with a window, D = 120,
+            non-causal, S not a multiple of 64; ssd, f32 and bf16: the
+            serving shape with a nonzero initial state, and p = 64,
+            n = 128; moe_gmm: deepseek's prefill and decode shapes in
+            bf16, bf16 x with f32 weights at the prefill shape, and the
+            reference's five kernel-test cases, gelu and non-128 shapes
+            included), then cold / warm device time, plain time, bound
+            and, for flash, the time of PyTorch's SDPA at both serving
+            shapes (a yardstick only; the port never calls it).
 7. serve    zamba2-1.2b at full width (38 layers, d_model 2048, vocab
             32000) in bf16 with attn_impl="pallas", through
             ``repro_torch.launch.serve.generate``: batch 4, prompt 2048,
@@ -40,8 +45,20 @@ non-zero exit:
 8. serve_parity  zamba2 at 6 layers (both block kinds), d_model 256, in
             float32, card vs CPU: prefill and decode logits within 1e-4,
             both sides stepped with the CPU's greedy tokens.
+9. serve_moe  deepseek-v2-lite-16b at full width (27 layers: one dense,
+            26 MoE of 64 experts top-6 + 2 shared; MLA in every layer;
+            d_model 2048, vocab 102400) with bf16 params (the one cut:
+            f32 would hold 62.8 GB of the 80) and attn_impl="pallas",
+            through ``generate``: batch 4, prompt 2048, 32 greedy tokens.
+            One prefill must launch moe_gmm exactly 26 times and flash 27
+            times, the whole generate moe_gmm 858 times (26 per prefill
+            and per decode step). Prints init seconds, prefill seconds,
+            decode tokens/s, peak memory and a prefill profile.
+10. serve_moe_parity  reduced deepseek (a dense and an MoE layer, MLA)
+            in float32, card vs CPU: prefill and decode logits within
+            1e-4, both sides stepped with the CPU's greedy tokens.
 
-Then a ``kernels`` line (all six kernels with their launch counts on
+Then a ``kernels`` line (all seven kernels with their launch counts on
 the main path, times and bounds), the card's name and power limit as
 nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +84,7 @@ LOSS_TOL = 1e-3                    # card vs CPU per-round losses
 # tolerances (tests/test_kernels.py)
 FA_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 0.0)}
 SSD_TOL = {"float32": (2e-4, 1e-5), "bfloat16": (0.1, 3e-2)}
+GMM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # by the output's dtype
 SERVE_TOL = 1e-4                   # card vs CPU logits, float32
 
 
@@ -106,7 +124,8 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
 
 
 def _profile(fn, iters: int) -> dict:
-    """{kernel name: device µs summed over ``iters`` calls of fn}."""
+    """{kernel name: device µs summed over ``iters`` calls of fn}, from
+    the profiler's CUDA activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -119,25 +138,62 @@ def _profile(fn, iters: int) -> dict:
             if e.self_device_time_total > 0}
 
 
-def device_ms(fn, cold: bool, iters: int = 50):
-    """Device time of one call from the profiler's CUDA activity: the
-    kernels' device time summed over ``iters`` calls, divided by
-    ``iters``. ``cold``: a 128 MB write before each call evicts the
-    50 MB L2, so the inputs come from device memory (the bound's
-    premise); its own kernel is left out of the sum.
-    -> (ms, names of the kernels counted)."""
+_SPIN = {}
+
+
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card."""
     import torch
-    if cold:
-        junk = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
-        flush_names = set(_profile(lambda: junk.fill_(1.0), 2))
-        times = _profile(lambda: (junk.fill_(1.0), fn()), iters)
-        times = {k: v for k, v in times.items() if k not in flush_names}
-    else:
-        times = _profile(fn, iters)
-    if not times:
-        fail("the profiler saw no device time")
-    return (sum(times.values()) / iters / 1e3,
-            sorted(k[:60] for k in times))
+    if not _SPIN:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN["per_ms"] = 10 ** 7 / a.elapsed_time(b)
+    return _SPIN["per_ms"]
+
+
+def device_ms(fn, cold: bool, iters: int = 20) -> float:
+    """Device time of one call: CUDA events around a run of ``iters``
+    calls, over ``iters``. A spin kernel first holds the card while the
+    host queues the whole run, so the interval holds the calls' device
+    work and not the host's launch path. ``cold``: a 128 MB write
+    before each call evicts the 50 MB L2, so the inputs come from
+    device memory (the bound's premise); the same run of writes alone
+    is timed too and taken off."""
+    import torch
+    junk = (torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+            if cold else None)
+
+    def flush():
+        if cold:
+            junk.fill_(1.0)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3     # to queue one call
+    spin = int(_spin_cycles_per_ms() * (2.0 * host_ms * iters + 5.0))
+
+    def run(body) -> float:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(iters):
+            body()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+    if not cold:
+        return run(fn) / iters
+    both = run(lambda: (flush(), fn()))
+    return max(0.0, both - run(flush)) / iters
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -194,7 +250,7 @@ def phase_device(torch, build):
     smi = nvidia_smi()
     t0 = time.time()
     libs = build.build(["int8_quant", "comm_fused", "flash_attention",
-                        "ssd_scan"])
+                        "ssd_scan", "moe_gmm"])
     build_s = time.time() - t0
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -269,21 +325,22 @@ def phase_kernels(torch, dev):
     timed = {}
     for name, (kern, plain, shape, (b_ms, b_by), _) in rows.items():
         # plain, kernel, kernel, plain: the two versions in turns
-        p1, k1, k2, p2 = (device_ms(plain, True), device_ms(kern, True),
-                          device_ms(kern, True), device_ms(plain, True))
-        warm_k, warm_p = device_ms(kern, False), device_ms(plain, False)
+        p1, k1, k2, p2 = (device_ms(plain, True, 50),
+                          device_ms(kern, True, 50),
+                          device_ms(kern, True, 50),
+                          device_ms(plain, True, 50))
+        warm_k = device_ms(kern, False, 50)
+        warm_p = device_ms(plain, False, 50)
         c_p1, c_k1, c_k2, c_p2 = (time_ms(plain), time_ms(kern),
                                   time_ms(kern), time_ms(plain))
-        timed[name] = {"shape": list(shape), "ms": min(k1[0], k2[0]),
-                       "plain_ms": min(p1[0], p2[0]), "bound_ms": b_ms,
+        timed[name] = {"shape": list(shape), "ms": min(k1, k2),
+                       "plain_ms": min(p1, p2), "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": None,
                        "max_abs_err": worst[name]}
-        emit("kernel", name=name, **timed[name],
-             device_ms_runs=[k1[0], k2[0]],
-             plain_device_ms_runs=[p1[0], p2[0]],
-             warm_l2_ms=warm_k[0], plain_warm_l2_ms=warm_p[0],
-             call_ms_runs=[c_k1, c_k2], plain_call_ms_runs=[c_p1, c_p2],
-             device_kernels=k1[1], plain_device_kernels=p1[1])
+        emit("kernel", name=name, **timed[name], device_ms_runs=[k1, k2],
+             plain_device_ms_runs=[p1, p2], warm_l2_ms=warm_k,
+             plain_warm_l2_ms=warm_p, call_ms_runs=[c_k1, c_k2],
+             plain_call_ms_runs=[c_p1, c_p2])
     return timed
 
 
@@ -291,8 +348,10 @@ def _counters():
     from repro_torch.kernels.comm_fused import kernel as cf
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.int8_quant import kernel as iq
+    from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.ssd_scan import kernel as ss
-    return (iq.LAUNCHES, cf.LAUNCHES, fa.LAUNCHES, ss.LAUNCHES)
+    return (iq.LAUNCHES, cf.LAUNCHES, fa.LAUNCHES, ss.LAUNCHES,
+            gmm.LAUNCHES)
 
 
 def reset_launches():
@@ -362,24 +421,40 @@ def phase_parity(tmp):
          losses_cpu=lc, max_loss_diff=dl)
 
 
-# ------------------------------------------------- slice 2: the LM path
-FA_CASES = [  # (B, S, H, K, D, causal, window): model layout (B,S,H,D)
-    (4, 2048, 32, 32, 64, True, 0),     # zamba2 shared attention, prefill
-    (2, 1000, 16, 4, 64, True, 256),    # GQA G = 4 with a window
-    (1, 512, 8, 2, 120, True, 0),       # h2o-danube's head dim
-    (2, 384, 4, 4, 64, False, 0),       # non-causal
-    (2, 333, 4, 2, 80, True, 0),        # S not a multiple of 64
+# ------------------------------------------------- slices 2-3: the LM path
+FA_CASES = [  # (B, S, H, K, D, Dv, causal, window): model layout (B,S,H,D)
+    (4, 2048, 32, 32, 64, 64, True, 0),     # zamba2 shared attention
+    (4, 2048, 16, 16, 192, 128, True, 0),   # deepseek MLA prefill
+    (2, 1000, 16, 4, 64, 64, True, 256),    # GQA G = 4 with a window
+    (1, 512, 8, 2, 120, 120, True, 0),      # h2o-danube's head dim
+    (2, 384, 4, 4, 64, 64, False, 0),       # non-causal
+    (2, 333, 4, 2, 80, 80, True, 0),        # S not a multiple of 64
 ]
 SSD_CASES = [  # (b, s, h, p, n, chunk)
     (4, 2048, 64, 64, 64, 128),         # zamba2 SSM layers, prefill
     (2, 1024, 8, 64, 128, 128),         # mamba2's p, n
 ]
+# (E, C, d, F, act, x dtype, weight dtype, input scales). C is
+# moe.py's capacity at factor 1.25, top-6 of 64 experts: 960 for a
+# 4 x 2048 prefill, the floor of 8 for a 4-token decode step.
+GMM_CASES = {
+    "prefill": (64, 960, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),
+    "decode": (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),
+    "prefill_f32_weights": (64, 960, 2048, 1408, "silu", "bfloat16",
+                            "float32", "model"),
+    # tests/test_kernels.py GMM_CASES, at its scales
+    "ref_0": (4, 64, 128, 256, "silu", "float32", "float32", "ref"),
+    "ref_1": (2, 128, 64, 512, "gelu", "float32", "float32", "ref"),
+    "ref_2": (8, 32, 256, 128, "silu", "float32", "float32", "ref"),
+    "ref_3": (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref"),
+    "ref_4": (3, 40, 96, 192, "gelu", "float32", "float32", "ref"),
+}
 
 
 def fa_inputs(torch, case, dtype, gen):
-    B, S, H, K, D, _, _ = case
-    return [(torch.randn(B, S, n, D, generator=gen)).to(dtype).cuda()
-            for n in (H, K, K)]
+    B, S, H, K, D, Dv = case[:6]
+    return [(torch.randn(B, S, n, dd, generator=gen)).to(dtype).cuda()
+            for n, dd in ((H, D), (K, D), (K, Dv))]
 
 
 def ssd_inputs(torch, case, dtype, gen):
@@ -396,6 +471,23 @@ def ssd_inputs(torch, case, dtype, gen):
             + [t.to(dtype).cuda() for t in (B, C, init)])
 
 
+def gmm_inputs(torch, case, gen):
+    """"ref": the reference kernel test's scales (x * 0.5, w * 0.05).
+    "model": unit-normal x (the RMS-normed hidden) and each weight
+    scaled by 1/sqrt of its contracted dim, so g, u and y are O(1):
+    |y| <= ~4 at the prefill shape, where a one-ulp difference of two
+    bf16 roundings (2^-6 at [2, 4)) is inside the 2e-2 tolerance."""
+    E, C, d, F, _, xdt, wdt, scale = case
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    sx, sg, sd = ((0.5, 0.05, 0.05) if scale == "ref"
+                  else (1.0, d ** -0.5, F ** -0.5))
+
+    def r(shape, sc, dt):
+        return (torch.randn(*shape, generator=gen) * sc).to(dts[dt]).cuda()
+    return (r((E, C, d), sx, xdt), r((E, d, F), sg, wdt),
+            r((E, d, F), sg, wdt), r((E, F, d), sd, wdt))
+
+
 def kept_pairs(S: int, T: int, causal: bool, window: int) -> int:
     """(q, k) pairs the mask keeps, per head."""
     total = 0
@@ -406,16 +498,41 @@ def kept_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return total
 
 
-def phase_lm_kernels(torch):
-    import torch.nn.functional as F
+def timed_row(kern, plain, lib, shape, bnd, n_ops, err, iters=5):
+    """Cold device time of the kernel and of the plain version in turns
+    (plain, kernel, kernel, plain; the better of each pair), warm time,
+    the library yardstick's cold time, and one call on the host's clock.
+    -> (row of the kernels line, extra readings)."""
+    p1, k1, k2, p2 = (device_ms(plain, True, iters),
+                      device_ms(kern, True, iters),
+                      device_ms(kern, True, iters),
+                      device_ms(plain, True, iters))
+    warm_k = device_ms(kern, False, iters)
+    lib_ms = None
+    if lib is not None:
+        lib_ms = min(device_ms(lib, True, iters), device_ms(lib, True, iters))
+    c_k = time_ms(kern, iters=10, warmup=2)
+    ms = min(k1, k2)
+    row = {"shape": shape, "ms": ms, "plain_ms": min(p1, p2),
+           "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+           "max_abs_err": err}
+    extra = {"device_ms_runs": [k1, k2], "plain_device_ms_runs": [p1, p2],
+             "warm_l2_ms": warm_k, "call_ms": c_k, "ops": n_ops,
+             "achieved_tflops": n_ops / (ms * 1e-3) / 1e12}
+    return row, extra
+
+
+def check_lm_kernels(torch, gen):
+    """Every LM kernel case against its plain version; -> worst abs
+    error by kernel."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.ssd_scan import kernel as ss
-    gen = torch.Generator().manual_seed(1)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "moe_gmm": 0.0}
     for case in FA_CASES:
-        causal, window = case[5], case[6]
+        causal, window = case[6], case[7]
         for name, dt in dtypes.items():
             q, k, v = fa_inputs(torch, case, dt, gen)
             out = fa_ops.flash_attention(q, k, v, window=window,
@@ -452,18 +569,78 @@ def phase_lm_kernels(torch):
                 fail(f"ssd_scan {case} {name}: outside {SSD_TOL[name]} "
                      f"by {ex} (max abs err {err})")
             worst["ssd_scan"] = max(worst["ssd_scan"], err)
+    for label, case in GMM_CASES.items():
+        x, wg, wu, wd = gmm_inputs(torch, case, gen)
+        y = gmm.moe_gmm(x, wg, wu, wd, act=case[4])
+        torch.cuda.synchronize()
+        yp = gmm.moe_gmm_plain(x, wg, wu, wd, act=case[4])
+        err = float((y.float() - yp.float()).abs().max())
+        tol = GMM_TOL[case[5]]
+        emit("lm_kernel_check", name="moe_gmm", case=label, shape=case[:4],
+             act=case[4], x_dtype=case[5], w_dtype=case[6],
+             max_abs_err=err, tol=tol, y_abs_max=float(yp.abs().max()))
+        if not (err <= tol and y.dtype == x.dtype):
+            fail(f"moe_gmm {label} {case}: max abs err {err} over {tol}")
+        worst["moe_gmm"] = max(worst["moe_gmm"], err)
+        del x, wg, wu, wd, y, yp
+    torch.cuda.empty_cache()
+    return worst
 
-    # times at the serving shapes, bf16 as the serve phase runs them
-    bf = torch.bfloat16
-    case = FA_CASES[0]
-    B, S, H, K, D, causal, window = case
-    q, k, v = fa_inputs(torch, case, bf, gen)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
-    fa_bytes = 4 * q.numel() * 2                   # q, k, v in, o out
-    fa_ops_n = 4 * B * H * D * kept_pairs(S, S, causal, window)
+
+def phase_lm_kernels(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.ssd_scan import kernel as ss
+    gen = torch.Generator().manual_seed(1)
+    worst = check_lm_kernels(torch, gen)
+
+    # times at the serving shapes, in the dtypes the serve phases run
+    def flash_row(case, dt, lib=True):
+        B, S, H, K, D, Dv, causal, window = case
+        q, k, v = fa_inputs(torch, case, dt, gen)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+        size = q.element_size()
+        n_bytes = (q.numel() + k.numel() + v.numel()
+                   + B * S * H * Dv) * size       # q, k, v in, o out
+        n_ops = 2 * B * H * (D + Dv) * kept_pairs(S, S, causal, window)
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+        return timed_row(
+            lambda: fa_ops.flash_attention(q, k, v, window=window,
+                                           causal=causal),
+            lambda: fa.attention_plain(qh, kh, vh, causal=causal,
+                                       window=window),
+            (lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                    is_causal=True))
+            if lib else None,
+            [B * H, S, D, Dv], bound(n_bytes, n_ops, rate), n_ops,
+            worst["flash_attention"])
+
+    def gmm_row(label):
+        E, C, d, Fd, act, xdt, wdt, _ = case = GMM_CASES[label]
+        x, wg, wu, wd = gmm_inputs(torch, case, gen)
+        n_bytes = (2 * x.numel() * x.element_size()
+                   + 3 * wg.numel() * wg.element_size())
+        n_ops = 6 * E * C * d * Fd
+        rate = BF16_OPS_PER_S if xdt == "bfloat16" else FP32_OPS_PER_S
+        row, extra = timed_row(
+            lambda: gmm.moe_gmm(x, wg, wu, wd, act=act),
+            lambda: gmm.moe_gmm_plain(x, wg, wu, wd, act=act), None,
+            list(case[:4]) + [xdt, wdt], bound(n_bytes, n_ops, rate), n_ops,
+            worst["moe_gmm"])
+        if label == "prefill":
+            # yardstick only: three bf16 torch.bmm of the same shapes
+            # (cuBLAS), no activation; the port never calls it
+            h = torch.empty((E, C, Fd), dtype=x.dtype, device=x.device)
+            extra["bmm3_bf16_ms"] = min(device_ms(
+                lambda: (torch.bmm(x, wg), torch.bmm(x, wu),
+                         torch.bmm(h, wd)), True, 5) for _ in range(2))
+        return row, extra
+
     sc = SSD_CASES[0]
-    x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, bf, gen)
+    x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, torch.bfloat16, gen)
     b_, s_, h_, p_, n_, l_ = sc
     nc = s_ // l_
     ssd_bytes = (2 * x.numel() * 2 + dtt.numel() * 4 + A.numel() * 4
@@ -471,89 +648,81 @@ def phase_lm_kernels(torch):
     ssd_ops_n = (b_ * nc * 2 * l_ * l_ * n_
                  + b_ * h_ * nc * (2 * (l_ * (l_ + 1) // 2) * p_
                                    + 2 * l_ * n_ * p_ + 2 * l_ * p_ * n_))
-    rows = {
-        "flash_attention": (
-            lambda: fa_ops.flash_attention(q, k, v, window=window,
-                                           causal=causal),
-            lambda: fa.attention_plain(qh, kh, vh, causal=causal,
-                                       window=window),
-            lambda: F.scaled_dot_product_attention(qc, kc, vc,
-                                                   is_causal=True),
-            [B * H, S, D], bound(fa_bytes, fa_ops_n, BF16_OPS_PER_S),
-            fa_ops_n),
-        "ssd_scan": (
+    makers = {
+        "flash_attention": lambda: flash_row(FA_CASES[0], torch.bfloat16),
+        "flash_attention_mla": lambda: flash_row(FA_CASES[1],
+                                                 torch.bfloat16),
+        "flash_attention_mla_f32": lambda: flash_row(
+            FA_CASES[1], torch.float32, lib=False),
+        "ssd_scan": lambda: timed_row(
             lambda: ss.ssd_scan(x, dtt, A, Bm, Cm, chunk=l_,
                                 initial_state=init),
             lambda: ss.ssd_scan_plain(x, dtt, A, Bm, Cm, chunk=l_,
                                       initial_state=init),
             None, list(sc), bound(ssd_bytes, ssd_ops_n, BF16_OPS_PER_S),
-            ssd_ops_n),
+            ssd_ops_n, worst["ssd_scan"]),
     }
+    # every moe_gmm case; at the reference's small shapes the time is
+    # mostly launch overhead
+    makers.update({"moe_gmm" if k == "prefill" else f"moe_gmm_{k}":
+                   (lambda k=k: gmm_row(k)) for k in GMM_CASES})
     timed = {}
-    for name, (kern, plain, lib, shape, (b_ms, b_by), n_ops) in rows.items():
-        p1, k1, k2, p2 = (device_ms(plain, True, 5), device_ms(kern, True, 5),
-                          device_ms(kern, True, 5), device_ms(plain, True, 5))
-        warm_k = device_ms(kern, False, 5)
-        lib_ms = None
-        if lib is not None:
-            l1, l2 = device_ms(lib, True, 5), device_ms(lib, True, 5)
-            lib_ms = min(l1[0], l2[0])
-        c_k = time_ms(kern, iters=10, warmup=2)
-        timed[name] = {"shape": shape, "ms": min(k1[0], k2[0]),
-                       "plain_ms": min(p1[0], p2[0]), "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": lib_ms,
-                       "max_abs_err": worst[name]}
-        emit("kernel", name=name, **timed[name],
-             device_ms_runs=[k1[0], k2[0]],
-             plain_device_ms_runs=[p1[0], p2[0]], warm_l2_ms=warm_k[0],
-             call_ms=c_k, ops=n_ops,
-             achieved_tflops=n_ops / (min(k1[0], k2[0]) * 1e-3) / 1e12,
-             device_kernels=k1[1], plain_device_kernels=p1[1])
+    for name, make in makers.items():
+        row, extra = make()
+        timed[name] = row
+        emit("kernel", name=name, **row, **extra)
+        torch.cuda.empty_cache()
     return timed
 
 
 ZAMBA = "zamba2-1.2b"
+DEEPSEEK = "deepseek-v2-lite-16b"
+GROUPS = (("flash_attention", ("flash_fwd",)), ("ssd_scan", ("ssd_scan",)),
+          ("moe_gmm", ("::gmm_",)),
+          ("gemm", ("gemm", "cutlass", "xmma", "nvjet")))
 
 
 def prefill_breakdown(torch, fn, wall_s: float) -> dict:
     """Device time of one prefill by kernel group (profiler CUDA
-    activity), beside the host-clock time of a prefill."""
-    with torch.no_grad():
-        times = _profile(fn, 1)
-    groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "gemm": 0.0,
-              "elementwise_and_copies": 0.0}
+    activity), beside the host-clock time of a prefill. The profiler now
+    and then reports nothing for a session: up to three sessions, and
+    ``kernels_seen`` says whether one reported."""
+    times = {}
+    for _ in range(3):
+        with torch.no_grad():
+            times = _profile(fn, 1)
+        if times:
+            break
+    groups = {g: 0.0 for g, _ in GROUPS}
+    groups["elementwise_and_copies"] = 0.0
     for name, us in times.items():
         low = name.lower()
-        if "flash_fwd" in low:
-            groups["flash_attention"] += us / 1e3
-        elif "ssd_scan" in low:
-            groups["ssd_scan"] += us / 1e3
-        elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet")):
-            groups["gemm"] += us / 1e3
-        else:
-            groups["elementwise_and_copies"] += us / 1e3
+        group = next((g for g, keys in GROUPS
+                      if any(k in low for k in keys)),
+                     "elementwise_and_copies")
+        groups[group] += us / 1e3
     busy_ms = sum(groups.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms_by_group": groups, "device_busy_ms": busy_ms,
-            "wall_ms": wall_s * 1e3,
+            "kernels_seen": len(times), "wall_ms": wall_s * 1e3,
             "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
 
 
-def phase_serve(torch, dev):
-    """zamba2-1.2b at full width, bf16, through generate()."""
-    import dataclasses
-    from repro_torch.configs import get_config
+def serve_full(torch, dev, cfg, tag, per_prefill, per_generate,
+               draw_on_device=False):
+    """One full-width config through generate(): batch 4, prompt 2048,
+    32 greedy tokens. The launches of one prefill and of the whole
+    generate are counted (each from 0) and must equal ``per_prefill`` /
+    ``per_generate``; then a timed prefill and a second generate, which
+    must repeat the first's tokens. -> the generate's launch counts."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import SplitModel
     from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_config(ZAMBA), attn_impl="pallas")
-    if not (cfg.n_layers == 38 and cfg.d_model == 2048
-            and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
-        fail(f"serve: {ZAMBA} is not the full-width config: {cfg}")
     batch, prompt, steps = 4, 2048, 32
     t0 = time.time()
-    params = SplitModel(cfg).init(0, device=dev)
+    params = SplitModel(cfg).init(0, device=dev,
+                                  draw_on_device=draw_on_device)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     gen = torch.Generator().manual_seed(2)
@@ -561,23 +730,34 @@ def phase_serve(torch, dev):
                            generator=gen).to(dev)
     torch.cuda.reset_peak_memory_stats()
 
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = generate(cfg, params, tokens, steps=steps)
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    counts = launches()
+    def counted(fn):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launches(), time.time() - t0
+
+    with torch.no_grad():
+        _, pre_counts, _ = counted(
+            lambda: tf.prefill(cfg, params, tokens, prompt + steps))
+    out, counts, first_s = counted(
+        lambda: generate(cfg, params, tokens, steps=steps))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if tuple(out.shape) != (batch, steps):
-        fail(f"serve: generated shape {tuple(out.shape)}")
+        fail(f"{tag}: generated shape {tuple(out.shape)}")
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-        fail("serve: generated tokens outside the vocabulary")
-    if counts["flash_attention"] != 6 or counts["ssd_scan"] != 32:
-        fail(f"serve: one prefill must launch flash 6 and ssd 32 times, "
-             f"got {counts}")
+        fail(f"{tag}: generated tokens outside the vocabulary")
+    for name, want in per_prefill.items():
+        if pre_counts[name] != want:
+            fail(f"{tag}: one prefill must launch {name} {want} times, "
+                 f"got {pre_counts}")
+    for name, want in per_generate.items():
+        if counts[name] != want:
+            fail(f"{tag}: generate must launch {name} {want} times, got "
+                 f"{counts}")
 
-    # second reading, outside the counted run: prefill alone, then the
+    # second reading, outside the counted runs: prefill alone, then the
     # whole generate again; decode time = their difference
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -590,46 +770,71 @@ def phase_serve(torch, dev):
         torch.cuda.synchronize()
         gen_s = time.time() - t0
     if not bool(torch.isfinite(logits.float()).all()):
-        fail("serve: non-finite prefill logits")
+        fail(f"{tag}: non-finite prefill logits")
+    del logits
     breakdown = prefill_breakdown(
         torch, lambda: tf.prefill(cfg, params, tokens, prompt + steps),
         prefill_s)
     if not torch.equal(out, out2):
-        fail("serve: two greedy runs of the same prompt differ")
+        fail(f"{tag}: two greedy runs of the same prompt differ")
     decode_s = gen_s - prefill_s
-    emit("serve", arch=ZAMBA, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab_size, dtype=cfg.dtype, attn_impl=cfg.attn_impl,
-         batch=batch, prompt=prompt, gen=steps, launches=counts,
-         init_s=init_s, first_generate_s=first_s, prefill_s=prefill_s,
-         generate_s=gen_s, decode_s=decode_s,
-         decode_tok_per_s=batch * steps / decode_s,
+    emit(tag, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+         attn_impl=cfg.attn_impl, batch=batch, prompt=prompt, gen=steps,
+         launches_prefill=pre_counts, launches=counts, init_s=init_s,
+         first_generate_s=first_s, prefill_s=prefill_s, generate_s=gen_s,
+         decode_s=decode_s, decode_tok_per_s=batch * steps / decode_s,
          prefill_tok_per_s=batch * prompt / prefill_s,
          peak_mem_gb=peak_gb, sample=out[0, :8].tolist())
-    emit("serve_prefill_profile", **breakdown)
+    emit(f"{tag}_prefill_profile", **breakdown)
     del params
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_serve_parity(torch, dev):
-    """Card vs CPU on reduced zamba2 in float32: prefill and decode
-    logits, both sides stepped with the CPU's greedy tokens."""
+def phase_serve(torch, dev):
+    """zamba2-1.2b at full width, bf16 activations, f32 params."""
     import dataclasses
-    from repro_torch.configs import get_config, make_reduced
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(ZAMBA), attn_impl="pallas")
+    if not (cfg.n_layers == 38 and cfg.d_model == 2048
+            and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
+        fail(f"serve: {ZAMBA} is not the full-width config: {cfg}")
+    want = {"flash_attention": 6, "ssd_scan": 32}
+    return serve_full(torch, dev, cfg, "serve", want, want)
+
+
+def phase_serve_moe(torch, dev):
+    """deepseek-v2-lite-16b at full width, bf16 activations and params;
+    the weights are drawn on the card (15.7 B values)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(DEEPSEEK), attn_impl="pallas",
+                              param_dtype="bfloat16")
+    n_moe = sum(f == "moe" for _, f in cfg.pattern())
+    if not (cfg.n_layers == 27 and n_moe == 26 and cfg.d_model == 2048
+            and cfg.n_experts == 64 and cfg.top_k == 6 and cfg.mla
+            and cfg.vocab_size == 102400 and cfg.dtype == "bfloat16"):
+        fail(f"serve_moe: {DEEPSEEK} is not the full-width config: {cfg}")
+    steps = 32
+    return serve_full(
+        torch, dev, cfg, "serve_moe",
+        {"moe_gmm": n_moe, "flash_attention": cfg.n_layers},
+        {"moe_gmm": n_moe * (1 + steps), "flash_attention": cfg.n_layers},
+        draw_on_device=True)
+
+
+def serve_parity(torch, dev, cfg, tag, batch=2, prompt=200, steps=8):
+    """Card vs CPU on a reduced config in float32: prefill and decode
+    logits, both sides stepped with the CPU's greedy tokens."""
     from repro_torch.models import SplitModel
     from repro_torch.models import transformer as tf
     from repro_torch.utils.tree import tree_map
-    cfg = dataclasses.replace(make_reduced(get_config(ZAMBA), n_layers=6),
-                              attn_impl="pallas")
-    if cfg.dtype != "float32" or {m for m, _ in cfg.pattern()} != {
-            "ssm", "shared_attn"}:
-        fail(f"serve_parity: unexpected reduced config {cfg.pattern()}")
     p_cpu = SplitModel(cfg).init(0, device="cpu")
     p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
-    batch, prompt, steps = 2, 200, 8
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                            generator=torch.Generator().manual_seed(3))
-    worst = 0.0
+    reset_launches()
     with torch.no_grad():
         lc, cc, n = tf.prefill(cfg, p_cpu, tokens, prompt + steps)
         lg, cg, _ = tf.prefill(cfg, p_gpu, tokens.to(dev), prompt + steps)
@@ -639,12 +844,37 @@ def phase_serve_parity(torch, dev):
             lc, cc = tf.decode_step(cfg, p_cpu, tok, cc, n + t)
             lg, cg = tf.decode_step(cfg, p_gpu, tok.to(dev), cg, n + t)
             worst = max(worst, float((lg.cpu() - lc).abs().max()))
-    emit("serve_parity", arch=cfg.name, n_layers=cfg.n_layers,
-         pattern=[m for m, _ in cfg.pattern()], batch=batch, prompt=prompt,
-         steps=steps, max_abs_logit_diff=worst, tol=SERVE_TOL,
-         logit_scale=float(lc.abs().max()))
+    emit(tag, arch=cfg.name, n_layers=cfg.n_layers,
+         pattern=[list(k) for k in cfg.pattern()], batch=batch,
+         prompt=prompt, steps=steps, max_abs_logit_diff=worst,
+         tol=SERVE_TOL, logit_scale=float(lc.abs().max()),
+         card_launches={k: v for k, v in launches().items() if v})
     if not worst <= SERVE_TOL:
-        fail(f"serve_parity: card vs CPU logits differ by {worst}")
+        fail(f"{tag}: card vs CPU logits differ by {worst}")
+
+
+def phase_serve_parity(torch, dev):
+    """Reduced zamba2 (both block kinds)."""
+    import dataclasses
+    from repro_torch.configs import get_config, make_reduced
+    cfg = dataclasses.replace(make_reduced(get_config(ZAMBA), n_layers=6),
+                              attn_impl="pallas")
+    if cfg.dtype != "float32" or {m for m, _ in cfg.pattern()} != {
+            "ssm", "shared_attn"}:
+        fail(f"serve_parity: unexpected reduced config {cfg.pattern()}")
+    serve_parity(torch, dev, cfg, "serve_parity")
+
+
+def phase_serve_moe_parity(torch, dev):
+    """Reduced deepseek: MLA in both layers, a dense and an MoE FFN."""
+    import dataclasses
+    from repro_torch.configs import get_config, make_reduced
+    cfg = dataclasses.replace(make_reduced(get_config(DEEPSEEK)),
+                              attn_impl="pallas")
+    if (cfg.dtype != "float32" or not cfg.mla
+            or {f for _, f in cfg.pattern()} != {"dense", "moe"}):
+        fail(f"serve_moe_parity: unexpected reduced config {cfg}")
+    serve_parity(torch, dev, cfg, "serve_moe_parity")
 
 
 def main() -> int:
@@ -680,10 +910,18 @@ def main() -> int:
     timed.update(phase_lm_kernels(torch))
     served = phase_serve(torch, dev)
     phase_serve_parity(torch, dev)
+    served_moe = phase_serve_moe(torch, dev)
+    phase_serve_moe_parity(torch, dev)
 
-    main_path = {"int8_quantize": seq, "int8_dequantize": seq,
-                 "int8_roundtrip": f_int8, "sparse_combine": f_topk,
-                 "flash_attention": served, "ssd_scan": served}
+    flash_paths = {"serve": served["flash_attention"],
+                   "serve_moe": served_moe["flash_attention"]}
+    main_path = {"int8_quantize": seq["int8_quantize"],
+                 "int8_dequantize": seq["int8_dequantize"],
+                 "int8_roundtrip": f_int8["int8_roundtrip"],
+                 "sparse_combine": f_topk["sparse_combine"],
+                 "flash_attention": sum(flash_paths.values()),
+                 "ssd_scan": served["ssd_scan"],
+                 "moe_gmm": served_moe["moe_gmm"]}
     replaces = {
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:48",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:80",
@@ -691,22 +929,30 @@ def main() -> int:
         "sparse_combine": "src/repro/kernels/comm_fused/kernel.py:82",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:97",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:75",
+        "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:61",
     }
     source = {"int8_quantize": "src/repro_torch/csrc/int8_quant.cu",
               "int8_dequantize": "src/repro_torch/csrc/int8_quant.cu",
               "int8_roundtrip": "src/repro_torch/csrc/comm_fused.cu",
               "sparse_combine": "src/repro_torch/csrc/comm_fused.cu",
               "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-              "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
+              "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+              "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu"}
+    # a kernel timed at more than one main-path shape: the first is the
+    # row's own, the others ride along
+    also = {"flash_attention": {"launches_by_path": flash_paths,
+                                "mla": timed["flash_attention_mla"]},
+            "moe_gmm": {"decode": timed["moe_gmm_decode"]}}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k],
-                "launches": main_path[k][k],
+                "launches": main_path[k],
                 "max_abs_err": timed[k]["max_abs_err"],
                 "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
                 "bound_ms": timed[k]["bound_ms"],
                 "bound_by": timed[k]["bound_by"],
                 "library_ms": timed[k]["library_ms"],
-                "shape": timed[k]["shape"]} for k in replaces]
+                "shape": timed[k]["shape"], **also.get(k, {})}
+               for k in replaces]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,19 +4,11 @@ transport and round-loop knobs, the registry and reduced variants.
 Every architecture has one file in this package exporting ``CONFIG``;
 the registry maps the public ``--arch`` id to it. ``ModelConfig`` keeps
 every field of the reference's, the SPMD and MoE ones included, so a
-config carries across unchanged. The MoE / MLA architectures need
-``models/moe.py`` and latent attention, which are not ported yet: their
-ids are known so that asking for one fails with a clear message instead
-of an unknown-arch error.
+config carries across unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
-
-# decoder-style architectures of the reference whose modules (MoE,
-# latent attention) are not ported yet
-LM_ARCHS = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
-NOT_PORTED = "MoE and MLA: not yet ported (slice 3)"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -77,10 +69,10 @@ class ModelConfig:
     remat: bool = False                 # recompute each block in training
     remat_policy: str = ""              # '' (full) | 'dots'
     scan_layers: bool = False           # scan over identical-block runs
-    # 'xla' | 'pallas': 'pallas' routes prefill attention and the SSD
-    # scan through the hand-written kernels (CUDA on a CUDA tensor, their
-    # plain versions on a CPU tensor); 'xla' runs the plain counterpart
-    # of the reference's XLA path
+    # 'xla' | 'pallas': 'pallas' routes prefill attention, the SSD scan
+    # and the MoE expert FFN through the hand-written kernels (CUDA on a
+    # CUDA tensor, their plain versions on a CPU tensor); 'xla' runs the
+    # plain counterpart of the reference's XLA path
     attn_impl: str = "xla"
     # modality frontend stub ('' | 'audio' | 'vision'): precomputed
     # frame/patch embeddings of shape (B, n_prefix, d_model).
@@ -311,10 +303,6 @@ def register(cfg):
 
 def get_config(name: str):
     _ensure_loaded()
-    if name in LM_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r}: {NOT_PORTED}; ported archs: "
-            f"{sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -334,6 +322,6 @@ def _ensure_loaded():
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
-        gemma3_27b, h2o_danube3_4b, internlm2_1p8b, internvl2_1b,
-        mamba2_2p7b, mobilenet, musicgen_medium, resnet8, stablelm_3b,
-        vgg16, zamba2_1p2b)
+        deepseek_v2_lite_16b, gemma3_27b, h2o_danube3_4b, internlm2_1p8b,
+        internvl2_1b, kimi_k2_1t_a32b, mamba2_2p7b, mobilenet,
+        musicgen_medium, resnet8, stablelm_3b, vgg16, zamba2_1p2b)

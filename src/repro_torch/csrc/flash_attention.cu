@@ -12,10 +12,12 @@
 // Bound on this card: at the serving shape (B*H = 128, S = T = 2048,
 // D = 64, causal, bf16) the two products are 69 GFLOP against 67 MB of
 // inputs and output, so operations, not bytes, bound it. bf16 with head
-// dims <= 128 (every config of the reference) therefore runs the two
+// dims <= 128 (every GQA config of the reference) therefore runs the two
 // products on the tensor cores (mma.sync, below); f32, which must stay
 // within 2e-5 of the f32 arithmetic, and wider heads run them on the
-// fp32 cores (the first kernel). wgmma + TMA is a later change.
+// fp32 cores (the first kernel). MLA's bf16 prefill (deepseek-v2-lite:
+// q/k head dim 192 = nope 128 + rope 64, v 128) is such a wider head and
+// takes the fp32-core path. wgmma + TMA is a later change.
 //
 // Design (fp32 cores). The TPU kernel walks a sequential (q block,
 // kv block) grid and carries the running max / denominator /
@@ -485,8 +487,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // given by its (batch, head, sequence) element strides with a unit stride
 // along the last dim; H % K == 0; D, Dv <= 256. dtype: 0 float32,
 // 1 bfloat16 (all four tensors alike). bf16 with D, Dv <= 128 (every
-// config of the reference) takes the tensor-core path; f32, and bf16
-// with a wider head, the fp32-core path.
+// GQA config of the reference) takes the tensor-core path; f32, and bf16
+// with a wider head (MLA's prefill, D 192), the fp32-core path.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int K, int S, int Tn, int D, int Dv, const long long* strides,

@@ -1,0 +1,99 @@
+"""Grouped expert FFN: per expert e, on its capacity bucket x_e (C, d),
+
+    y_e = (act(x_e Wg_e) o (x_e Wu_e)) Wd_e
+
+in f32 arithmetic, with y in x's dtype. act is silu or gelu (the tanh
+approximation, as ``jax.nn.gelu``). x is float32 or bfloat16; the three
+weights share float32 or bfloat16 (the reference passes the params as
+they are, f32 by default, beside bf16 activations).
+
+On a CUDA tensor the wrapper launches the hand-written Hopper kernel
+(``csrc/moe_gmm.cu``: a gate/up kernel into an f32 workspace, then a
+down kernel) or raises; on a CPU tensor it runs the plain version
+beside it, the reference's ``moe_gmm/ref.py``. ``LAUNCHES`` counts
+wrapper calls that launched the kernel pair.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+ACTS = {"silu": 0, "gelu": 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "moe_gmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+LAUNCHES = {"moe_gmm": 0}
+
+
+def _lib():
+    return _build.load("moe_gmm", _SIGNATURES)
+
+
+def _act(act: str):
+    if act == "silu":
+        return F.silu
+    return lambda v: F.gelu(v, approximate="tanh")
+
+
+# ----------------------------------------------------------- plain version
+def moe_gmm_plain(x, wg, wu, wd, *, act: str = "silu"):
+    """x: (E, C, d); wg/wu: (E, d, F); wd: (E, F, d) -> (E, C, d)."""
+    f32 = torch.float32
+    xf = x.to(f32)
+    g = _act(act)(torch.einsum("ecd,edf->ecf", xf, wg.to(f32)))
+    u = torch.einsum("ecd,edf->ecf", xf, wu.to(f32))
+    y = torch.einsum("ecf,efd->ecd", g * u, wd.to(f32))
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------- wrapper
+def _check(x, wg, wu, wd, act):
+    if act not in ACTS:
+        raise ValueError(f"moe_gmm: act must be one of {sorted(ACTS)}, "
+                         f"got {act!r}")
+    if x.dim() != 3 or any(w.dim() != 3 for w in (wg, wu, wd)):
+        raise ValueError("moe_gmm: want 3-D x, wg, wu, wd")
+    E, C, d = x.shape
+    Fd = wg.shape[-1]
+    if (tuple(wg.shape) != (E, d, Fd) or tuple(wu.shape) != (E, d, Fd)
+            or tuple(wd.shape) != (E, Fd, d)):
+        raise ValueError(f"moe_gmm: shapes x {tuple(x.shape)}, wg "
+                         f"{tuple(wg.shape)}, wu {tuple(wu.shape)}, wd "
+                         f"{tuple(wd.shape)}")
+    if (x.dtype not in _DTYPES or wg.dtype not in _DTYPES
+            or not (wg.dtype == wu.dtype == wd.dtype)):
+        raise ValueError(f"moe_gmm: x and the (shared) weight dtype must be "
+                         f"float32 or bfloat16, got {x.dtype} {wg.dtype} "
+                         f"{wu.dtype} {wd.dtype}")
+    if any(w.device != x.device for w in (wg, wu, wd)):
+        raise ValueError("moe_gmm: inputs on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"moe_gmm: unsupported device {x.device}")
+
+
+def moe_gmm(x, wg, wu, wd, *, act: str = "silu"):
+    """Kernel wrapper of ``moe_gmm_plain``."""
+    _check(x, wg, wu, wd, act)
+    if x.device.type == "cpu":
+        return moe_gmm_plain(x, wg, wu, wd, act=act)
+    E, C, d = x.shape
+    Fd = wg.shape[-1]
+    if E > 65535:
+        raise ValueError(f"moe_gmm: {E} experts > 65535 (the grid's z)")
+    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
+    y = torch.empty_like(x)
+    if y.numel():
+        h = torch.empty((E, C, Fd), dtype=torch.float32, device=x.device)
+        _build.check(_lib().moe_gmm(
+            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            h.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], _DTYPES[wg.dtype],
+            E, C, d, Fd, ACTS[act], _build.stream_ptr(x)), "moe_gmm")
+        LAUNCHES["moe_gmm"] += 1
+    return y

@@ -253,8 +253,8 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     check_ported(ap, args)
-    cfg = get_config(args.arch)          # MoE / MLA archs raise here
-    if not isinstance(cfg, CNNConfig):
+    cfg = get_config(args.arch)
+    if not isinstance(cfg, CNNConfig):   # every LM arch, MoE / MLA too
         raise NotImplementedError(
             f"--arch {args.arch}: S²FL training of the LM families is not "
             f"yet ported (a later slice); serve it with "

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import NOT_PORTED, CNNConfig
+from repro_torch.configs.base import CNNConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import cross_entropy
@@ -28,20 +28,19 @@ class SplitModel:
     def __init__(self, cfg):
         self.cfg = cfg
         self.is_cnn = isinstance(cfg, CNNConfig) or cfg.arch_type == "cnn"
-        if not self.is_cnn and (cfg.mla or any(f == "moe"
-                                               for _, f in cfg.pattern())):
-            raise NotImplementedError(NOT_PORTED)
 
     # -- parameters ---------------------------------------------------------
     def defs(self):
         return (cnn_mod.cnn_defs(self.cfg) if self.is_cnn
                 else tf_mod.model_defs(self.cfg))
 
-    def init(self, seed: int, *, device):
+    def init(self, seed: int, *, device, draw_on_device: bool = False):
+        """``draw_on_device`` (LM only): draw the weights on ``device``
+        (see ``models/params.py``)."""
         if self.is_cnn:
             return cnn_mod.init_cnn(self.cfg, seed, device=device)
         return init_params(self.defs(), seed, self.cfg.param_dtype,
-                           device=device)
+                           device=device, draw_on_device=draw_on_device)
 
     # -- structure ----------------------------------------------------------
     @property

@@ -1,5 +1,6 @@
-"""Attention: grouped-query attention (full / sliding-window), with train /
-prefill / decode paths and KV caches.
+"""Attention: grouped-query attention (full / sliding-window) and MLA
+(DeepSeek latent attention), with train / prefill / decode paths and KV
+caches.
 
 ``cfg.attn_impl == "pallas"`` sends train / prefill attention (S > 1)
 through the flash attention kernel wrapper (``kernels/flash_attention``):
@@ -10,11 +11,15 @@ the reference scans with a per-block ``jax.checkpoint`` (a memory knob
 of its training path; the numbers are the same). Decode always takes
 the plain path, as in the reference.
 
+MLA's train / prefill attention goes the same way (through flash
+under 'pallas', with q/k head dim nope + rope and v's own head dim);
+its decode is the reference's absorbed form, plain f32 einsums over
+the latent cache.
+
 Cache layouts (batch-first, sequence second):
   full attn : {'k': (B, S, K, D), 'v': (B, S, K, D)}
   swa       : ring buffer {'k': (B, W, K, D), 'v': ..., 'slot_pos': (W,)}
-
-Latent attention (MLA, deepseek / kimi) is not ported yet (slice 3).
+  mla       : {'latent': (B, S, R), 'k_rope': (B, S, Dr)}
 """
 from __future__ import annotations
 
@@ -22,8 +27,7 @@ import math
 
 import torch
 
-from repro_torch.configs.base import NOT_PORTED
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
@@ -33,9 +37,20 @@ NEG_INF = -1e30
 # defs
 # ---------------------------------------------------------------------------
 def attn_defs(cfg):
+    d, H = cfg.d_model, cfg.n_heads
     if cfg.mla:
-        raise NotImplementedError(NOT_PORTED)
-    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        R, Dr, Dn, Dv = (cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                         cfg.qk_nope_head_dim, cfg.v_head_dim)
+        return {
+            "wq": ParamDef((d, H, Dn + Dr), ("embed", "heads", "none")),
+            "w_dkv": ParamDef((d, R), ("embed", "lora")),
+            "w_kr": ParamDef((d, Dr), ("embed", "none")),
+            "latent_norm": ParamDef((R,), ("lora",), init="ones"),
+            "w_uk": ParamDef((R, H, Dn), ("lora", "heads", "none")),
+            "w_uv": ParamDef((R, H, Dv), ("lora", "heads", "none")),
+            "wo": ParamDef((H, Dv, d), ("heads", "none", "embed")),
+        }
+    K, D = cfg.n_kv_heads, cfg.head_dim
     return {
         "wq": ParamDef((d, H, D), ("embed", "heads", "head_dim")),
         "wk": ParamDef((d, K, D), ("embed", "kv_heads", "head_dim")),
@@ -100,7 +115,12 @@ def grouped_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
 def init_attn_cache(cfg, kind: str, batch: int, max_len: int, dtype,
                     device):
     if cfg.mla:
-        raise NotImplementedError(NOT_PORTED)
+        return {
+            "latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                  dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+        }
     K, D = cfg.n_kv_heads, cfg.head_dim
     L = min(max_len, cfg.sliding_window) if kind == "swa" else max_len
     cache = {"k": torch.zeros((batch, L, K, D), dtype=dtype, device=device),
@@ -175,7 +195,69 @@ def gqa_apply(cfg, kind, p, x, positions, cache=None, cache_index=None):
     return out, cache
 
 
+# ---------------------------------------------------------------------------
+# MLA paths
+# ---------------------------------------------------------------------------
+def _mla_latent(cfg, p, x, positions):
+    latent = x @ p["w_dkv"].to(x.dtype)
+    latent = rmsnorm({"scale": p["latent_norm"]}, latent, cfg.norm_eps)
+    k_rope = x @ p["w_kr"].to(x.dtype)                   # (B,S,Dr)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return latent, k_rope
+
+
+def mla_apply(cfg, p, x, positions, cache=None, cache_index=None):
+    """As ``gqa_apply``; the latent and rope-key caches are written in
+    place."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    Dn, Dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :Dn], q[..., Dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    if cache is None or S > 1:                          # train / prefill
+        latent, k_rope = _mla_latent(cfg, p, x, positions)
+        k_nope = torch.einsum("btr,rhk->bthk", latent,
+                              p["w_uk"].to(x.dtype))
+        v = torch.einsum("btr,rhk->bthk", latent, p["w_uv"].to(x.dtype))
+        # cat copies: k and q get the unit last stride the kernel reads
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, Dr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = grouped_attention(qq, k, v, positions, positions,
+                                causal=True, impl=cfg.attn_impl)
+        if cache is not None:
+            cache["latent"][:, :S] = latent
+            cache["k_rope"][:, :S] = k_rope
+    else:                                               # decode (absorbed)
+        idx = int(cache_index)
+        latent, k_rope = _mla_latent(cfg, p, x, positions)
+        cache["latent"][:, idx] = latent[:, 0]
+        cache["k_rope"][:, idx] = k_rope[:, 0]
+        T = cache["latent"].shape[1]
+        scale = 1.0 / math.sqrt(Dn + Dr)
+        f32 = torch.float32
+        # absorb w_uk into the query: (B,1,H,R)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                             p["w_uk"].to(x.dtype))
+        s = (torch.einsum("bshr,btr->bhst", q_lat.to(f32),
+                          cache["latent"].to(f32))
+             + torch.einsum("bshk,btk->bhst", q_rope.to(f32),
+                            cache["k_rope"].to(f32))) * scale
+        valid = torch.arange(T, device=x.device) <= idx
+        s = torch.where(valid, s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", w.to(x.dtype),
+                             cache["latent"])
+        out = torch.einsum("bshr,rhk->bshk", o_lat, p["w_uv"].to(x.dtype))
+
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache
+
+
 def attn_apply(cfg, kind, p, x, positions, cache=None, cache_index=None):
     if cfg.mla:
-        raise NotImplementedError(NOT_PORTED)
+        return mla_apply(cfg, p, x, positions, cache, cache_index)
     return gqa_apply(cfg, kind, p, x, positions, cache, cache_index)

@@ -1,0 +1,150 @@
+"""Mixture-of-Experts FFN: top-k routing, shared experts, capacity-based
+scatter dispatch with static shapes.
+
+Positions-in-expert come from sort-based ranking, as in the reference:
+a stable argsort of the (T*k,) expert assignments, ranks within runs
+via searchsorted, then the inverse permutation. Dispatch and combine
+are a scatter-add and a gather at (expert, slot). ``cfg.attn_impl ==
+'pallas'`` sends the expert FFN through the ``moe_gmm`` kernel wrapper
+(``kernels/moe_gmm``: its CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor); ``'xla'`` runs the plain counterpart of the
+reference's XLA path, which casts the weights to the activations'
+dtype first.
+
+``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
+leaves their order unspecified; router scores are f32 softmaxes of
+random projections, where ties do not occur.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import activation, mlp
+from repro_torch.models.params import ParamDef
+
+
+def moe_defs(cfg):
+    d, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    defs = {
+        "router": ParamDef((d, E), ("embed", "experts"), dtype="float32"),
+        "w_gate": ParamDef((E, d, F), ("experts", "embed", "expert_ff")),
+        "w_up": ParamDef((E, d, F), ("experts", "embed", "expert_ff")),
+        "w_down": ParamDef((E, F, d), ("experts", "expert_ff", "embed")),
+    }
+    if cfg.n_shared_experts:
+        Fs = cfg.moe_d_ff * cfg.n_shared_experts
+        defs["shared"] = {
+            "w_gate": ParamDef((d, Fs), ("embed", "ff")),
+            "w_up": ParamDef((d, Fs), ("embed", "ff")),
+            "w_down": ParamDef((Fs, d), ("ff", "embed")),
+        }
+    return defs
+
+
+def _expert_ffn(p, x, act):
+    """x: (E, C, d) -> (E, C, d), batched over experts."""
+    actf = activation(act)
+    g = actf(torch.einsum("ecd,edf->ecf", x, p["w_gate"].to(x.dtype)))
+    u = torch.einsum("ecd,edf->ecf", x, p["w_up"].to(x.dtype))
+    return torch.einsum("ecf,efd->ecd", g * u, p["w_down"].to(x.dtype))
+
+
+def positions_in_expert(flat_e, E: int):
+    """flat_e (G, N) expert ids -> (G, N) slot of each entry in its
+    expert's bucket: 0, 1, ... in entry order within each row (a stable
+    sort, run starts by searchsorted, the inverse permutation)."""
+    G, N = flat_e.shape
+    dev = flat_e.device
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev).expand(G, E).contiguous())
+    rank_sorted = (torch.arange(N, device=dev)
+                   - torch.gather(starts, 1, sorted_e))
+    return torch.empty_like(flat_e).scatter_(1, order, rank_sorted)
+
+
+def _dispatch_combine(cfg, p, xt, *, capacity_factor: float):
+    """Dispatch -> expert FFN -> combine for G token slabs xt (G, T, d),
+    each bucketed on its own (capacity per slab, drops decided locally).
+    Positions are first-come-first-served in token order (sort-based).
+    Returns (out (G, T, d), aux (G,))."""
+    G, T, d = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dev = xt.device
+
+    logits = xt.to(torch.float32) @ p["router"]          # (G, T, E) f32
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(gates, k, dim=-1)            # (G, T, k)
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
+    slab = torch.arange(G, device=dev)[:, None] * E
+    counts = torch.bincount((topi.reshape(G, -1) + slab).reshape(-1),
+                            minlength=G * E).reshape(G, E)
+    density = counts.to(torch.float32) / (T * k)
+    aux = (E * torch.sum(density * gates.mean(1), dim=-1)
+           * cfg.router_aux_coef)
+
+    C = int(capacity_factor * k * T / E)
+    C = max(8, math.ceil(C / 8) * 8)
+
+    flat_e = topi.reshape(G, -1)                         # (G, T*k)
+    N = flat_e.shape[1]
+    flat_pos = positions_in_expert(flat_e, E)
+    keep = flat_pos < C                                  # overflow dropped
+
+    safe_pos = torch.where(keep, flat_pos, C - 1)
+    g_idx = torch.arange(G, device=dev)[:, None].expand(G, N)
+    x_rep = xt.repeat_interleave(k, dim=1)               # (G, T*k, d)
+    exp_in = torch.zeros((G, E, C, d), dtype=xt.dtype, device=dev)
+    exp_in.index_put_((g_idx, flat_e, safe_pos),
+                      torch.where(keep[..., None], x_rep, 0).to(xt.dtype),
+                      accumulate=True)
+
+    # the slabs' buckets of one expert side by side: (E, G*C, d), one
+    # expert FFN call for all slabs (rows are independent)
+    exp_in = exp_in.transpose(0, 1).reshape(E, G * C, d)
+    if cfg.attn_impl == "pallas":
+        from repro_torch.kernels.moe_gmm import ops as gmm_ops
+        exp_out = gmm_ops.expert_ffn(p, exp_in, cfg.act)
+    else:
+        exp_out = _expert_ffn(p, exp_in, cfg.act)
+    exp_out = exp_out.reshape(E, G, C, d).transpose(0, 1)
+
+    gathered = exp_out[g_idx, flat_e, safe_pos]          # (G, T*k, d)
+    gathered = torch.where(keep[..., None], gathered, 0)
+    w = topw.reshape(G, -1).to(xt.dtype)
+    out = (gathered * w[..., None]).reshape(G, T, k, d).sum(dim=2)
+    return out, aux
+
+
+def moe_apply(cfg, p, x, *, capacity_factor: float = 1.25):
+    """x: (B,S,d). Returns (out, aux_loss).
+
+    When ``cfg.moe_dispatch_shards > 1`` (and divides the batch), tokens
+    are bucketed per shard, as the reference's pod-scale dispatch does:
+    the batch is viewed as (shards, T/shards, d) and the ranking,
+    scatter and gather run over a leading shard dim, so capacity is per
+    shard and drop decisions are local. (The reference also pins the
+    shard dim to mesh axes with ``with_sharding_constraint``; one card
+    has no mesh, and the numbers do not depend on it.)
+    """
+    B, S, d = x.shape
+    T = B * S
+    shards = getattr(cfg, "moe_dispatch_shards", 0) or 1
+    if shards > 1 and B % shards == 0:
+        out, aux = _dispatch_combine(cfg, p,
+                                     x.reshape(shards, T // shards, d),
+                                     capacity_factor=capacity_factor)
+        out, aux = out.reshape(T, d), aux.mean()
+    else:
+        out, aux = _dispatch_combine(cfg, p, x.reshape(1, T, d),
+                                     capacity_factor=capacity_factor)
+        out, aux = out[0], aux[0]
+
+    if cfg.n_shared_experts:
+        out = out + mlp(p["shared"], x.reshape(T, d), cfg.act)
+    return out.reshape(B, S, d), aux

@@ -10,7 +10,10 @@ leaf in the reference's leaf order, and only then moves to the device:
 the same seed gives the same weights on the card and on the CPU. (It
 does not give the reference's weights — JAX's threefry stream has no
 torch counterpart; parity tests copy the reference's init across with
-``models/convert.py``.)
+``models/convert.py``.) ``draw_on_device`` draws from a generator on the
+device itself instead: the same init kinds and distributions, other
+numbers, and no host-side draw of a full-width model (deepseek-v2-lite's
+15.7 B values).
 """
 from __future__ import annotations
 
@@ -39,17 +42,21 @@ def is_def(x) -> bool:
 
 
 def _materialize(d: ParamDef, gen: torch.Generator, param_dtype: str):
+    """One leaf, on the generator's device."""
     dtype = DTYPES[d.dtype or param_dtype]
+    dev = gen.device
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype)
+        return torch.zeros(d.shape, dtype=dtype, device=dev)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype)
+        return torch.ones(d.shape, dtype=dtype, device=dev)
     if d.init == "ssm_a":        # A_log: A in [1, 16]
-        u = torch.rand(d.shape, generator=gen, dtype=torch.float32)
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=dev)
         return torch.log(1.0 + 15.0 * u).to(dtype)
     if d.init == "ssm_dt":       # dt_bias: softplus^-1(dt), dt in [1e-3, 1e-1]
         lo, hi = math.log(1e-3), math.log(1e-1)
-        u = torch.rand(d.shape, generator=gen, dtype=torch.float32)
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=dev)
         dt = torch.exp(lo + (hi - lo) * u)
         return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     if d.init == "normal":
@@ -62,15 +69,17 @@ def _materialize(d: ParamDef, gen: torch.Generator, param_dtype: str):
         std = math.sqrt(2.0 / max(fan_in, 1))
     else:
         raise ValueError(f"unknown init {d.init!r}")
-    return (torch.randn(d.shape, generator=gen, dtype=torch.float32)
-            * std).to(dtype)
+    return (torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=dev) * std).to(dtype)
 
 
 def init_params(defs, seed: int, param_dtype: str = "float32", *,
-                device):
-    """Materialize a ParamDef tree into tensors on ``device``."""
+                device, draw_on_device: bool = False):
+    """Materialize a ParamDef tree into tensors on ``device``, drawn on
+    the CPU (the default) or, with ``draw_on_device``, on ``device``."""
     leaves, skel = tree_flatten(defs, is_leaf=is_def)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = torch.Generator(device=device if draw_on_device else "cpu")
+    gen.manual_seed(int(seed))
     out = [_materialize(d, gen, param_dtype).to(device) for d in leaves]
     return tree_unflatten(skel, out)
 

@@ -9,15 +9,14 @@ portion is ``blocks[s:] + final_norm + head``.
 knobs of the reference (``lax.scan`` over identical blocks, per-block
 ``jax.checkpoint``). Both compute the same numbers as the plain loop
 over blocks, which is what PyTorch runs eagerly here, so the fields are
-carried but not read. MoE feed-forward layers are not ported yet
-(slice 3).
+carried but not read.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import NOT_PORTED
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (cross_entropy, embed, embed_defs,
                                        head_defs, mlp, mlp_defs, rmsnorm,
@@ -41,7 +40,8 @@ def _block_defs(cfg, mixer: str, ffn: str):
         defs["norm2"] = rmsnorm_defs(d)
         defs["ffn"] = mlp_defs(d, cfg.d_ff)
     elif ffn == "moe":
-        raise NotImplementedError(NOT_PORTED)
+        defs["norm2"] = rmsnorm_defs(d)
+        defs["ffn"] = moe_mod.moe_defs(cfg)
     return defs
 
 
@@ -78,7 +78,9 @@ def _apply_block_kind(cfg, mixer, ffn, bp, shared, h, positions, cache,
                       cache_index):
     """One block of a given (mixer, ffn) kind with explicit params `bp`
     (and the config-level shared-attention params for zamba2-style
-    blocks)."""
+    blocks). Returns (h, cache, aux): aux is the MoE router loss, None
+    for the other kinds (no device op on their path)."""
+    aux = None
     if mixer == "shared_attn":
         sp = shared
         a, cache = attn_mod.attn_apply(cfg, "attn", sp["mixer"],
@@ -86,7 +88,7 @@ def _apply_block_kind(cfg, mixer, ffn, bp, shared, h, positions, cache,
                                        positions, cache, cache_index)
         h = h + a
         f = mlp(sp["ffn"], rmsnorm(sp["norm2"], h, cfg.norm_eps), cfg.act)
-        return h + f, cache
+        return h + f, cache, aux
 
     if mixer == "ssm":
         a, cache = ssm_mod.ssm_apply(cfg, bp["mixer"],
@@ -100,28 +102,34 @@ def _apply_block_kind(cfg, mixer, ffn, bp, shared, h, positions, cache,
     if ffn == "dense":
         h = h + mlp(bp["ffn"], rmsnorm(bp["norm2"], h, cfg.norm_eps), cfg.act)
     elif ffn == "moe":
-        raise NotImplementedError(NOT_PORTED)
-    return h, cache
+        f, aux = moe_mod.moe_apply(cfg, bp["ffn"],
+                                   rmsnorm(bp["norm2"], h, cfg.norm_eps))
+        h = h + f
+    return h, cache, aux
 
 
 def apply_blocks(cfg, params, h, lo: int, hi: int, positions,
                  caches=None, cache_index=None, train: bool = False):
     """Apply blocks [lo, hi). caches: per-layer list (len n_layers) or None.
-    Returns (h, caches, aux_sum); aux is the MoE router loss, 0 without
-    MoE layers. ``train`` selects the reference's remat, a memory knob
-    with the same numbers, so it changes nothing here."""
+    Returns (h, caches, aux_sum); aux_sum adds up the blocks' MoE router
+    losses, 0 without MoE layers. ``train`` selects the reference's
+    remat, a memory knob with the same numbers, so it changes nothing
+    here."""
     pat = cfg.pattern()
     shared = params.get("shared_attn")
     caches = list(caches) if caches is not None else None
+    aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(lo, hi):
         mixer, ffn = pat[i]
         c_i = caches[i] if caches is not None else None
-        h, c_i = _apply_block_kind(cfg, mixer, ffn, params["blocks"][i],
-                                   shared, h, positions, c_i, cache_index)
+        h, c_i, aux = _apply_block_kind(cfg, mixer, ffn, params["blocks"][i],
+                                        shared, h, positions, c_i,
+                                        cache_index)
         if caches is not None:
             caches[i] = c_i
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h, caches, aux
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return h, caches, aux_sum
 
 
 def apply_head(cfg, params, h):

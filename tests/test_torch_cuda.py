@@ -9,12 +9,14 @@ this file needs no conftest), so it runs there as
 and skips everywhere else: a CUDA kernel has no CPU mode. Tolerances
 are the reference's kernel tolerances (tests/test_kernels.py): flash
 atol 2e-5 in f32 and 2e-2 in bf16; ssd (atol 2e-4, rtol 1e-5) in f32
-and (0.1, 3e-2) in bf16."""
+and (0.1, 3e-2) in bf16; moe_gmm atol 1e-5 with an f32 output and 2e-2
+with a bf16 one."""
 import pytest
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.moe_gmm import kernel as gmm
 from repro_torch.kernels.ssd_scan import kernel as ssd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -41,6 +43,8 @@ FA_CASES = [  # (B, H, K, S, T, D, Dv, causal, window)
                                                     # value by value
     (1, 2, 1, 100, 100, 200, 160, True, 0),         # bf16 D > 128: the
                                                     # fp32-core path
+    (1, 16, 16, 1024, 1024, 192, 128, True, 0),     # MLA prefill: q/k
+                                                    # nope 128 + rope 64
 ]
 
 
@@ -98,3 +102,59 @@ def test_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, dtype):
     atol, rtol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), y_p.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(f.float(), f_p.float(), atol=atol, rtol=rtol)
+
+
+GMM_CASES = [  # (E, C, d, F, act, x dtype, weight dtype, scale)
+    (4, 64, 128, 256, "silu", "float32", "float32", "ref"),
+    (2, 128, 64, 512, "gelu", "float32", "float32", "ref"),
+    (8, 32, 256, 128, "silu", "float32", "float32", "ref"),
+    (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref"),
+    (3, 40, 96, 192, "gelu", "float32", "float32", "ref"),  # non-128
+    (3, 40, 96, 192, "gelu", "bfloat16", "float32", "ref"),  # mixed
+    (2, 9, 33, 20, "silu", "float32", "float32", "ref"),    # odd d
+    (2, 9, 33, 20, "silu", "bfloat16", "bfloat16", "ref"),
+    (4, 24, 64, 48, "silu", "float32", "bfloat16", "ref"),  # bf16 params,
+                                                            # f32 compute
+    (3, 40, 96, 192, "gelu", "bfloat16", "bfloat16", "ref"),  # cp.async
+    (2, 130, 72, 40, "silu", "bfloat16", "bfloat16", "ref"),  # ragged
+                                                    # tiles, partial slab
+    (2, 24, 33, 20, "silu", "bfloat16", "bfloat16", "ref"),   # d % 8 != 0:
+                                                    # register staging
+    (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),  # decode
+    (64, 8, 2048, 1408, "silu", "bfloat16", "float32", "model"),
+    (8, 200, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),
+    (8, 200, 2048, 1408, "silu", "bfloat16", "float32", "model"),
+]
+
+
+def gmm_inputs(E, C, d, F, xdt, wdt, scale, gen):
+    """"ref": the reference kernel test's scales (x * 0.5, w * 0.05).
+    "model": unit-normal x (the RMS-normed hidden) and each weight
+    scaled by 1/sqrt of its contracted dim, so g, u and y are O(1):
+    |y| <= ~4 at d 2048, where a one-ulp difference of two bf16
+    roundings (2^-6 at [2, 4)) is inside the 2e-2 tolerance."""
+    sx, sg, sd = ((0.5, 0.05, 0.05) if scale == "ref"
+                  else (1.0, d ** -0.5, F ** -0.5))
+    x = torch.randn(E, C, d, generator=gen) * sx
+    wg = torch.randn(E, d, F, generator=gen) * sg
+    wu = torch.randn(E, d, F, generator=gen) * sg
+    wd = torch.randn(E, F, d, generator=gen) * sd
+    return (x.to(_DTYPES[xdt]),) + tuple(w.to(_DTYPES[wdt])
+                                         for w in (wg, wu, wd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,F,act,xdt,wdt,scale", GMM_CASES)
+def test_moe_gmm_kernel_matches_plain(card, E, C, d, F, act, xdt, wdt,
+                                      scale):
+    g = torch.Generator().manual_seed(0)
+    x, wg, wu, wd = (t.to(card) for t in gmm_inputs(E, C, d, F, xdt, wdt,
+                                                      scale, g))
+    n = gmm.LAUNCHES["moe_gmm"]
+    y = gmm.moe_gmm(x, wg, wu, wd, act=act)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["moe_gmm"] == n + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    plain = gmm.moe_gmm_plain(x, wg, wu, wd, act=act)
+    atol = 1e-5 if xdt == "float32" else 2e-2
+    torch.testing.assert_close(y.float(), plain.float(), atol=atol, rtol=0)

@@ -96,3 +96,22 @@ def test_rejects_bad_inputs():
         fa.flash_attention_bhsd(q, torch.zeros(1, 1, 8, 16,
                                                dtype=torch.float64),
                                 torch.zeros(1, 1, 8, 16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_mla_head_dims(dtype):
+    """MLA's prefill: q/k head dim nope 128 + rope 64, v's 128; the
+    scale is 1/sqrt(192), from q's head dim, on both sides."""
+    rng = np.random.default_rng(4)
+    q, k = (rng.normal(size=(4, 64, 192)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(4, 64, 128)).astype(np.float32)
+    ref = ref_flash(*(jnp.asarray(a).astype(dtype) for a in (q, k, v)),
+                    causal=True, interpret=True)
+    out = fa.flash_attention_fwd(
+        *(torch.from_numpy(a).to(_TORCH[dtype]) for a in (q, k, v)),
+        causal=True)
+    assert tuple(out.shape) == (4, 64, 128)
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), atol=atol)

@@ -1,9 +1,11 @@
 """The port's LM stack against the reference, on reduced configs in
 float32: ``forward`` logits, ``prefill`` logits and caches, and four
 teacher-forced ``decode_step``s, under ``attn_impl`` 'xla' and 'pallas'
-('pallas' reaches the port's flash attention and SSD scan wrappers,
-which take their plain versions on the CPU, and the reference's Pallas
-kernels in interpret mode). The reference's initial params are carried
+('pallas' reaches the port's flash attention, SSD scan and moe_gmm
+wrappers, which take their plain versions on the CPU, and the
+reference's Pallas kernels in interpret mode). The MoE archs
+(deepseek-v2-lite with latent attention, kimi-k2 with GQA) compare the
+forward's router aux loss too. The reference's initial params are carried
 across with ``models/convert.py``; tokens come from a numpy seed.
 
 Tolerance: 2e-5 absolute on logits (|logits| ~ 1; both sides compute in
@@ -22,6 +24,7 @@ from repro.models import SplitModel as RefModel
 from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config, make_reduced
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.models import SplitModel
 from repro_torch.models import transformer as tf
@@ -32,7 +35,7 @@ TOL = 2e-5
 B, S, STEPS = 2, 80, 4          # S > the reduced SWA window (64) and not
                                 # a multiple of the reduced SSD chunk (32)
 ARCHS = ["zamba2-1.2b", "internlm2-1.8b", "h2o-danube-3-4b", "mamba2-2.7b",
-         "gemma3-27b"]
+         "gemma3-27b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
 
 
 def _configs(name, impl):
@@ -54,9 +57,10 @@ def _close(a, b, tol=TOL):
 
 @pytest.fixture(autouse=True)
 def _no_launches_on_cpu():
-    before = {**fa_kernel.LAUNCHES, **ssd_kernel.LAUNCHES}
+    counters = (fa_kernel.LAUNCHES, ssd_kernel.LAUNCHES, gmm_kernel.LAUNCHES)
+    before = [dict(c) for c in counters]
     yield
-    assert {**fa_kernel.LAUNCHES, **ssd_kernel.LAUNCHES} == before
+    assert [dict(c) for c in counters] == before
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -68,10 +72,11 @@ def test_forward_prefill_decode_match_reference(name, impl):
         0, rc.vocab_size, (B, S + STEPS)).astype(np.int32)
     prompt = toks[:, :S]
 
-    rl, _ = jax.jit(lambda p, t: ref_tf.forward(rc, p, t))(
+    rl, raux = jax.jit(lambda p, t: ref_tf.forward(rc, p, t))(
         rp, jnp.asarray(prompt))
-    tl, _ = tf.forward(tc, tp, torch.from_numpy(prompt))
+    tl, taux = tf.forward(tc, tp, torch.from_numpy(prompt))
     _close(rl, tl)
+    _close(raux, taux)                           # MoE router loss, else 0
 
     max_len = S + STEPS
     rlg, rcache, rn = jax.jit(
@@ -96,7 +101,8 @@ def test_forward_prefill_decode_match_reference(name, impl):
 
 
 @pytest.mark.parametrize("name,split", [("zamba2-1.2b", 1),
-                                        ("internlm2-1.8b", 1)])
+                                        ("internlm2-1.8b", 1),
+                                        ("deepseek-v2-lite-16b", 1)])
 def test_split_loss_equals_full_loss_and_reference(name, split):
     """client_forward + server_loss at a split == full_loss, on both
     sides; the port's losses equal the reference's."""
