@@ -28,20 +28,24 @@ non-zero exit:
 6. lm_kernels  flash attention, the SSD scan and moe_gmm against their
             plain versions on the card (flash, f32 and bf16: the zamba2
             and deepseek MLA serving shapes, GQA with a window, D = 120,
-            non-causal, S not a multiple of 64; ssd, f32 and bf16: the
-            serving shape with a nonzero initial state, and p = 64,
-            n = 128; moe_gmm: deepseek's prefill and decode shapes in
-            bf16, bf16 x with f32 weights at the prefill shape, and the
-            reference's five kernel-test cases, gelu and non-128 shapes
-            included), then cold / warm device time, plain time, bound
-            and, for flash, the time of PyTorch's SDPA at both serving
-            shapes (a yardstick only; the port never calls it).
+            non-causal, S not a multiple of 64, D = Dv = 256, each
+            bf16 case on the wgmma path; and bf16 that TMA cannot take
+            on the fp32-core path: tensors off a 16-byte boundary at
+            both serving shapes, and D or Dv not a multiple of 8; ssd,
+            f32 and bf16: the serving shape with a nonzero initial
+            state, and p = 64, n = 128; moe_gmm: deepseek's prefill and
+            decode shapes in bf16, bf16 x with f32 weights at the
+            prefill shape, and the reference's five kernel-test cases,
+            gelu and non-128 shapes included), then cold / warm device time, plain time, bound
+            and, for flash, the path, the achieved TFLOP/s and the time
+            of PyTorch's SDPA at both serving shapes (a yardstick only;
+            the port never calls it).
 7. serve    zamba2-1.2b at full width (38 layers, d_model 2048, vocab
             32000) in bf16 with attn_impl="pallas", through
             ``repro_torch.launch.serve.generate``: batch 4, prompt 2048,
-            32 greedy tokens; flash must launch exactly 6 times and the
-            SSD scan 32 times (one prefill). Prints prefill seconds,
-            decode tokens/s and peak memory.
+            32 greedy tokens; flash must launch exactly 6 times, all on
+            the wgmma path, and the SSD scan 32 times (one prefill).
+            Prints prefill seconds, decode tokens/s and peak memory.
 8. serve_parity  zamba2 at 6 layers (both block kinds), d_model 256, in
             float32, card vs CPU: prefill and decode logits within 1e-4,
             both sides stepped with the CPU's greedy tokens.
@@ -51,9 +55,10 @@ non-zero exit:
             f32 would hold 62.8 GB of the 80) and attn_impl="pallas",
             through ``generate``: batch 4, prompt 2048, 32 greedy tokens.
             One prefill must launch moe_gmm exactly 26 times and flash 27
-            times, the whole generate moe_gmm 858 times (26 per prefill
-            and per decode step). Prints init seconds, prefill seconds,
-            decode tokens/s, peak memory and a prefill profile.
+            times, all on the wgmma path, the whole generate moe_gmm 858
+            times (26 per prefill and per decode step). Prints init
+            seconds, prefill seconds, decode tokens/s, peak memory and a
+            prefill profile.
 10. serve_moe_parity  reduced deepseek (a dense and an MoE layer, MLA)
             in float32, card vs CPU: prefill and decode logits within
             1e-4, both sides stepped with the CPU's greedy tokens.
@@ -429,6 +434,15 @@ FA_CASES = [  # (B, S, H, K, D, Dv, causal, window): model layout (B,S,H,D)
     (1, 512, 8, 2, 120, 120, True, 0),      # h2o-danube's head dim
     (2, 384, 4, 4, 64, 64, False, 0),       # non-causal
     (2, 333, 4, 2, 80, 80, True, 0),        # S not a multiple of 64
+    (1, 512, 4, 4, 256, 256, True, 0),      # the widest head dims
+]
+# bf16 that TMA cannot take runs the fp32-core kernel: (case, shift).
+# shift: every tensor one element past a 16-byte boundary
+FA_FP32_CASES = [
+    ((4, 2048, 32, 32, 64, 64, True, 0), True),     # zamba2's shape
+    ((4, 2048, 16, 16, 192, 128, True, 0), True),   # MLA's shape
+    ((1, 300, 4, 2, 36, 36, True, 0), False),       # D % 8 != 0
+    ((1, 300, 2, 1, 200, 164, True, 0), False),     # Dv % 8 != 0
 ]
 SSD_CASES = [  # (b, s, h, p, n, chunk)
     (4, 2048, 64, 64, 64, 128),         # zamba2 SSM layers, prefill
@@ -451,10 +465,14 @@ GMM_CASES = {
 }
 
 
-def fa_inputs(torch, case, dtype, gen):
+def fa_inputs(torch, case, dtype, gen, shift=False):
     B, S, H, K, D, Dv = case[:6]
-    return [(torch.randn(B, S, n, dd, generator=gen)).to(dtype).cuda()
-            for n, dd in ((H, D), (K, D), (K, Dv))]
+    shapes = [(B, S, n, dd) for n, dd in ((H, D), (K, D), (K, Dv))]
+    if not shift:
+        return [torch.randn(*sh, generator=gen).to(dtype).cuda()
+                for sh in shapes]
+    return [torch.randn(math.prod(sh) + 1, generator=gen).to(dtype).cuda()
+            [1:].view(*sh) for sh in shapes]
 
 
 def ssd_inputs(torch, case, dtype, gen):
@@ -522,6 +540,21 @@ def timed_row(kern, plain, lib, shape, bnd, n_ops, err, iters=5):
     return row, extra
 
 
+def flash_paths() -> dict:
+    """Flash launches so far, by kernel path."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    return {p: fa.LAUNCHES[f"flash_attention_{p}"] for p in fa.PATHS}
+
+
+def path_taken(before: dict) -> str:
+    """The one path launched since ``before``."""
+    now = flash_paths()
+    moved = [p for p in now if now[p] != before[p]]
+    if len(moved) != 1 or now[moved[0]] != before[moved[0]] + 1:
+        fail(f"flash: expected one launch, got {before} -> {now}")
+    return moved[0]
+
+
 def check_lm_kernels(torch, gen):
     """Every LM kernel case against its plain version; -> worst abs
     error by kernel."""
@@ -531,25 +564,34 @@ def check_lm_kernels(torch, gen):
     from repro_torch.kernels.ssd_scan import kernel as ss
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "moe_gmm": 0.0}
-    for case in FA_CASES:
-        causal, window = case[6], case[7]
-        for name, dt in dtypes.items():
-            q, k, v = fa_inputs(torch, case, dt, gen)
-            out = fa_ops.flash_attention(q, k, v, window=window,
-                                         causal=causal)
-            torch.cuda.synchronize()
-            ref = fa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=causal,
-                                     window=window).transpose(1, 2)
-            err = float((out.float() - ref.float()).abs().max())
-            ex = excess(out, ref, *FA_TOL[name])
-            emit("lm_kernel_check", name="flash_attention", case=case,
-                 dtype=name, max_abs_err=err, tol=FA_TOL[name])
-            if not ex <= 0:
-                fail(f"flash_attention {case} {name}: max abs err {err} "
-                     f"over {FA_TOL[name]}")
-            worst["flash_attention"] = max(worst["flash_attention"], err)
-            del q, k, v, out, ref
+    runs = ([(case, name, False) for case in FA_CASES for name in dtypes]
+            + [(case, "bfloat16", shift) for case, shift in FA_FP32_CASES])
+    for case, name, shift in runs:
+        causal, window, dt = case[6], case[7], dtypes[name]
+        q, k, v = fa_inputs(torch, case, dt, gen, shift)
+        before = flash_paths()
+        out = fa_ops.flash_attention(q, k, v, window=window,
+                                     causal=causal)
+        torch.cuda.synchronize()
+        path = path_taken(before)
+        want = ("wgmma" if name == "bfloat16" and not shift
+                and case[4] % 8 == 0 and case[5] % 8 == 0 else "fp32")
+        if path != want:
+            fail(f"flash_attention {case} {name} shift={shift}: ran "
+                 f"the {path} path, want {want}")
+        ref = fa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window).transpose(1, 2)
+        err = float((out.float() - ref.float()).abs().max())
+        ex = excess(out, ref, *FA_TOL[name])
+        emit("lm_kernel_check", name="flash_attention", case=case,
+             dtype=name, shift=shift, path=path, max_abs_err=err,
+             tol=FA_TOL[name])
+        if not ex <= 0:
+            fail(f"flash_attention {case} {name}: max abs err {err} "
+                 f"over {FA_TOL[name]}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        del q, k, v, out, ref
     for case in SSD_CASES:
         chunk = case[5]
         for name, dt in dtypes.items():
@@ -607,9 +649,16 @@ def phase_lm_kernels(torch):
                    + B * S * H * Dv) * size       # q, k, v in, o out
         n_ops = 2 * B * H * (D + Dv) * kept_pairs(S, S, causal, window)
         rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
-        return timed_row(
-            lambda: fa_ops.flash_attention(q, k, v, window=window,
-                                           causal=causal),
+
+        def kern():
+            return fa_ops.flash_attention(q, k, v, window=window,
+                                          causal=causal)
+        before = flash_paths()
+        kern()
+        torch.cuda.synchronize()
+        path = path_taken(before)
+        row, extra = timed_row(
+            kern,
             lambda: fa.attention_plain(qh, kh, vh, causal=causal,
                                        window=window),
             (lambda: F.scaled_dot_product_attention(qc, kc, vc,
@@ -617,6 +666,10 @@ def phase_lm_kernels(torch):
             if lib else None,
             [B * H, S, D, Dv], bound(n_bytes, n_ops, rate), n_ops,
             worst["flash_attention"])
+        extra["path"] = path
+        if row["library_ms"]:
+            extra["sdpa_tflops"] = n_ops / (row["library_ms"] * 1e-3) / 1e12
+        return row, extra
 
     def gmm_row(label):
         E, C, d, Fd, act, xdt, wdt, _ = case = GMM_CASES[label]
@@ -800,7 +853,7 @@ def phase_serve(torch, dev):
     if not (cfg.n_layers == 38 and cfg.d_model == 2048
             and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
         fail(f"serve: {ZAMBA} is not the full-width config: {cfg}")
-    want = {"flash_attention": 6, "ssd_scan": 32}
+    want = {"flash_attention": 6, "flash_attention_wgmma": 6, "ssd_scan": 32}
     return serve_full(torch, dev, cfg, "serve", want, want)
 
 
@@ -817,11 +870,11 @@ def phase_serve_moe(torch, dev):
             and cfg.vocab_size == 102400 and cfg.dtype == "bfloat16"):
         fail(f"serve_moe: {DEEPSEEK} is not the full-width config: {cfg}")
     steps = 32
+    flash = {"flash_attention": cfg.n_layers,
+             "flash_attention_wgmma": cfg.n_layers}
     return serve_full(
-        torch, dev, cfg, "serve_moe",
-        {"moe_gmm": n_moe, "flash_attention": cfg.n_layers},
-        {"moe_gmm": n_moe * (1 + steps), "flash_attention": cfg.n_layers},
-        draw_on_device=True)
+        torch, dev, cfg, "serve_moe", {"moe_gmm": n_moe, **flash},
+        {"moe_gmm": n_moe * (1 + steps), **flash}, draw_on_device=True)
 
 
 def serve_parity(torch, dev, cfg, tag, batch=2, prompt=200, steps=8):
@@ -913,13 +966,13 @@ def main() -> int:
     served_moe = phase_serve_moe(torch, dev)
     phase_serve_moe_parity(torch, dev)
 
-    flash_paths = {"serve": served["flash_attention"],
-                   "serve_moe": served_moe["flash_attention"]}
+    flash_by_serve = {"serve": served["flash_attention"],
+                      "serve_moe": served_moe["flash_attention"]}
     main_path = {"int8_quantize": seq["int8_quantize"],
                  "int8_dequantize": seq["int8_dequantize"],
                  "int8_roundtrip": f_int8["int8_roundtrip"],
                  "sparse_combine": f_topk["sparse_combine"],
-                 "flash_attention": sum(flash_paths.values()),
+                 "flash_attention": sum(flash_by_serve.values()),
                  "ssd_scan": served["ssd_scan"],
                  "moe_gmm": served_moe["moe_gmm"]}
     replaces = {
@@ -940,7 +993,11 @@ def main() -> int:
               "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu"}
     # a kernel timed at more than one main-path shape: the first is the
     # row's own, the others ride along
-    also = {"flash_attention": {"launches_by_path": flash_paths,
+    by_kernel_path = {p: served[f"flash_attention_{p}"]
+                      + served_moe[f"flash_attention_{p}"]
+                      for p in ("wgmma", "fp32")}
+    also = {"flash_attention": {"launches_by_path": flash_by_serve,
+                                "launches_by_kernel_path": by_kernel_path,
                                 "mla": timed["flash_attention_mla"]},
             "moe_gmm": {"decode": timed["moe_gmm_decode"]}}
     kernels = [{"name": k, "route": "cuda", "source": source[k],

@@ -9,15 +9,22 @@
 // 0 (the l == 0 -> 1 guard); masked scores are -1e30, not -inf. q head h
 // reads kv head h / G (the reference's "b // G" with its (K, G) order).
 //
-// Bound on this card: at the serving shape (B*H = 128, S = T = 2048,
-// D = 64, causal, bf16) the two products are 69 GFLOP against 67 MB of
-// inputs and output, so operations, not bytes, bound it. bf16 with head
-// dims <= 128 (every GQA config of the reference) therefore runs the two
-// products on the tensor cores (mma.sync, below); f32, which must stay
-// within 2e-5 of the f32 arithmetic, and wider heads run them on the
-// fp32 cores (the first kernel). MLA's bf16 prefill (deepseek-v2-lite:
-// q/k head dim 192 = nope 128 + rope 64, v 128) is such a wider head and
-// takes the fp32-core path. wgmma + TMA is a later change.
+// Bound on this card: operations, at both serving shapes (bf16, causal,
+// S = T = 2048): zamba2 (B*H 128, D 64) does 68.8 GFLOP against 134 MB
+// of inputs and output, MLA (deepseek-v2-lite, B*H 64, q/k 192 = nope
+// 128 + rope 64, v 128) 85.9 GFLOP against 168 MB; at the bf16
+// tensor-core peak of 989 TFLOP/s that is 0.0695 and 0.0869 ms (the
+// bytes at 3.35 TB/s: 0.040 and 0.050 ms). Only wgmma reaches that rate
+// on Hopper, so bf16 runs both products there (the second kernel).
+//
+// Two kernels; the wrapper (kernels/flash_attention/kernel.py, _path)
+// picks one from the dtype, the head dims and the alignment alone:
+// - "wgmma": bf16 with D and Dv multiples of 8 up to 256, 16-byte base
+//   pointers and strides that are multiples of 8 elements: every
+//   attention config of the reference (64, 80, 120, 128, MLA's 192/128)
+//   and every layout the model passes.
+// - "fp32": f32, which must stay within 2e-5 of the f32 arithmetic, and
+//   the bf16 that TMA cannot take (the first kernel).
 //
 // Design (fp32 cores). The TPU kernel walks a sequential (q block,
 // kv block) grid and carries the running max / denominator /
@@ -36,8 +43,11 @@
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() of the
 // launch.
+#include <cuda.h>        // CUtensorMap and its enums; no -lcuda: the
+                         // encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -200,37 +210,409 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-
-// ---- bf16 on the tensor cores: mma.sync.m16n8k16, f32 accumulation ----
+// ---- bf16 on wgmma, fed by TMA: the "wgmma" path ----
 //
-// Same schedule, one block per (batch*head, 64-row q tile), a loop over
-// 64-row kv tiles; four warps, each owning 16 q rows. S = Q K^T comes
-// from mma with Q's fragments held in registers for the whole kv loop;
-// the online softmax runs on S's accumulator fragments (a row's scores
-// spread over the four lanes of a quad: two xor-shuffles); O += P V
-// feeds P straight from those fragments. P is split into a bf16 high
-// part and a bf16 remainder, two mma's, so the product keeps ~16 bits
-// of P's mantissa: the result stays as close to the f32 arithmetic as
-// the fp32-core path, instead of moving by P's bf16 rounding (2^-9).
-// V is staged transposed in shared memory so that its B fragments are
-// 32-bit loads. Rows of 8 extra bf16 keep the quads' shared loads on
-// distinct banks. Head dims are padded with zeros to HD (64 or 128).
-// Tiles come in by 16-byte loads where the head dims and strides are
-// multiples of 8 (every config), else value by value.
-constexpr int kMBQ = 64;         // q rows per block (4 warps x 16)
-constexpr int kMBK = 64;         // kv rows per tile
-constexpr int kMThreads = 128;
-constexpr int kPad = 8;          // bf16 of padding per shared row
+// FlashAttention-3's forward shape. One block owns one (batch*head,
+// 128-row q tile), longest causal rows first, and three warpgroups: two
+// consumers of 64 q rows each (wgmma's M) and a producer, which hands
+// most of its registers to the consumers (setmaxnreg) and whose thread 0
+// brings the Q tile once and then K and V tiles into a two-stage ring by
+// TMA (cp.async.bulk.tensor; 4-D maps over (head dim, sequence, head,
+// batch) built from the wrapper's strides; 128-byte swizzle; 64
+// head-dim columns a box). Loads complete on mbarriers: one for Q, and
+// per stage a "full" barrier each for K and V and a "free" barrier each
+// on which all 256 consumer threads arrive once they are done with that
+// K or V. TMA's out-of-bounds zero fill covers a ragged S or T and pads
+// D and Dv up to a multiple of 64 (120 -> 128): no load is masked.
+//
+// Per kv tile i, each consumer warpgroup
+// - issues S = Q K^T of tile i + 1 (wgmma m64nBNk16, both operands
+//   K-major in shared memory; HD / 16 k-steps: 12 at D 192, 4 at D 64);
+// - rescales O while that runs, then issues O += P V of tile i: P of
+//   tile i, rounded once to bf16 in registers, is the register A operand
+//   of wgmma m64nHDVk16 (S's accumulator layout is the A layout: no
+//   shuffle); V is the shared B operand read MN-major through wgmma's
+//   transpose bit (no transpose of V anywhere);
+// - runs the online softmax of tile i + 1 on S's accumulator registers
+//   in f32 while the tensor cores do P V: a row sits in the four lanes of
+//   a quad (two xor-shuffles for its max; its sum is reduced once, at the
+//   end), exp2 with scale * log2(e) folded in. Only tiles that cross the
+//   causal diagonal, the window's edge or the end of T are masked; tiles
+//   wholly outside the mask are never loaded.
+// P is rounded to bf16 once, one pass over P V as in FlashAttention-2/3
+// (no second pass over its bf16 remainder): the card's error with one
+// pass stays inside the bf16 tolerance at every case (PERF.md). The epilogue divides by l (l == 0 -> 1) and stores bf16
+// pairs through the output's strides.
+//
+// Tiles come from the head dims at compile time: HD, HDV = D, Dv rounded
+// up to 64. While S of the next tile is in flight, S (BN / 2 registers a
+// thread), P (BN / 4) and O (HDV / 2) are all live, and ptxas keeps the
+// consumers near 168 registers, so the kv tile BN is 128 only for
+// HDV 64 (zamba2: 128 live) and 64 otherwise (MLA's 192/128: 112 live;
+// Q 48 KB + 2 x (24 + 16) KB of shared memory). HDV 192 spills 48 bytes
+// and HDV 256 about 600 (ptxas -v); no served config has them.
+constexpr int kWBQ = 128;        // q rows per block (two warpgroups x 64)
+constexpr int kWThreads = 384;   // two consumer warpgroups + a producer one
+constexpr int kWConsumers = 256;
+constexpr int kWStages = 2;      // K/V ring depth
+// setmaxnreg: 168 registers a thread at launch (65536 / 384); the
+// producer gives 128 x (168 - 24) to the consumers, 256 x (240 - 168)
+constexpr int kWProducerRegs = 24;
+constexpr int kWConsumerRegs = 240;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
+template <int HD, int HDV>
+struct WgTile {
+  static constexpr int kBN = HDV <= 64 ? 128 : 64;     // kv rows a tile
+  static constexpr int kQ = kWBQ * HD * 2;          // bytes of each tile
+  static constexpr int kK = kBN * HD * 2;
+  static constexpr int kV = kBN * HDV * 2;
+  static constexpr int kBars = 8 * (1 + 4 * kWStages);
+  // tiles 1024-aligned (the 128-byte swizzle's period); + alignment slack
+  static constexpr int kSmem = kQ + kWStages * (kK + kV) + kBars + 1024;
+};
+
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<64> {
+  // S (+)= A B, A and B K-major in shared memory; acc 0 overwrites
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // S (+)= A B, A and B K-major in shared memory; acc 0 overwrites
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<192> {
+  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<256> {
+  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed; a completion that
+// never comes (seconds of polling) fails the launch instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (n == (1u << 28)) __trap();
+  }
+}
+
+// one 64-column box of a 4-D map at (col, row, head, batch)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
+// K-major: lbo unused (1), sbo = 1024 (8 rows of 128 bytes). MN-major:
+// lbo = the stride between 64-column boxes, sbo = 1024 (8 k rows).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Pins registers that an in-flight wgmma reads or writes: reads after
+// the wait cannot move above it, writes before the fence cannot move
+// below it, and the registers stay live (unreused) in between.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// One warpgroup's view of its 64 rows; this thread holds rows qi0 and
+// qi1 = qi0 + 8, and of each 8 columns of S and O the pair 2t, 2t + 1.
+struct Rows {
+  int qi0, qi1, r_lo, t;
+  float m0, m1, l0, l1;    // running max (raw score), this lane's sum
+};
+
+// The online softmax of one kv tile on S's accumulator: masks the tile
+// if it crosses the causal diagonal, the window's edge or the end of T,
+// moves the running max, turns sc into p = exp(scale (s - max)) (in
+// f32) and returns the factors (a0, a1) that rescale O's two rows.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], Rows& r,
+                                             int k0, int Tn, bool causal,
+                                             int window, float scale_log2,
+                                             float& a0, float& a1) {
+  const bool edge = k0 + BN > Tn || (causal && k0 + BN - 1 > r.r_lo) ||
+                    (window && r.r_lo + 63 - k0 >= window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int kj = k0 + (j >> 2) * 8 + 2 * r.t + (j & 1);
+      const int qi = (j & 2) ? r.qi1 : r.qi0;
+      bool ok = kj < Tn;
+      if (causal) ok = ok && qi >= kj;
+      if (window) ok = ok && qi - kj < window;
+      if (!ok) sc[j] = -INFINITY;
+    }
+  }
+  float mx0 = r.m0, mx1 = r.m1;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    if (j & 2) mx1 = fmaxf(mx1, sc[j]);
+    else mx0 = fmaxf(mx0, sc[j]);
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // a row with no key kept yet keeps max -inf: exponents taken from 0
+  const float mb0 = (mx0 == -INFINITY ? 0.f : mx0) * scale_log2;
+  const float mb1 = (mx1 == -INFINITY ? 0.f : mx1) * scale_log2;
+  a0 = ex2(r.m0 * scale_log2 - mb0);                // -inf -> 0
+  a1 = ex2(r.m1 * scale_log2 - mb1);
+  r.m0 = mx0;
+  r.m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    const float p = ex2(fmaf(sc[j], scale_log2, (j & 2) ? -mb1 : -mb0));
+    sc[j] = p;
+    if (j & 2) ps1 += p;
+    else ps0 += p;
+  }
+  r.l0 = r.l0 * a0 + ps0;
+  r.l1 = r.l1 * a1 + ps1;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -238,232 +620,320 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// P in bf16 as wgmma's register A operand: S's accumulator layout is
+// the A layout, 16 columns (4 registers) a k-step
+template <int BN>
+__device__ __forceinline__ void to_a(const float (&sc)[BN / 2],
+                                     uint32_t (&pa)[BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      pa[kk][q] = pack_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int H, int G, int S,
-                     int Tn, int D, int Dv, Strides qs, Strides ks,
-                     Strides vs, Strides os, bool causal, int window,
-                     float scale, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kP = HD + kPad;                 // Qs / Ks row pitch
-  constexpr int kPV = kMBK + kPad;              // Vt row pitch
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kMBQ * kP;
-  __nv_bfloat16* Vt = Ks + kMBK * kP;           // [HD][kMBK + kPad]
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, int H, int G, int S,
+                       int Tn, int Dv, Strides os, bool causal, int window,
+                       float scale_log2) {
+  using Cfg = WgTile<HD, HDV>;
+  constexpr int BN = Cfg::kBN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = sQ + Cfg::kQ;                 // + stage * kK
+  const uint32_t sV = sK + kWStages * Cfg::kK;      // + stage * kV
+  // barriers: Q; then per stage K full, V full, K free, V free
+  const uint32_t bar_q = sV + kWStages * Cfg::kV;
+  const auto bar = [&](int kind, int s) {
+    return bar_q + 8 * (1 + kind * kWStages + s);
+  };
+  enum { kFullK, kFullV, kFreeK, kFreeV };
 
-  const int n_qt = (S + kMBQ - 1) / kMBQ;
-  const int qt = n_qt - 1 - blockIdx.x;         // longest rows first
+  const int n_qt = (S + kWBQ - 1) / kWBQ;
+  const int qt = n_qt - 1 - blockIdx.x;             // longest rows first
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H, kh = h / G;
-  const int q0 = qt * kMBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;        // quad row, lane in quad
+  const int q0 = qt * kWBQ;
+  int k_lo = 0, k_hi = Tn;                          // keys any row keeps
+  if (causal) k_hi = min(Tn, q0 + kWBQ);
+  if (window) k_lo = max(0, q0 - window + 1);
+  k_lo = (k_lo / BN) * BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
-
-  if (vec) {                                    // 16-byte loads, 8 values
-    for (int i = tid; i < kMBQ * (HD / 8); i += kMThreads) {
-      const int r = i / (HD / 8), d8 = (i - r * (HD / 8)) * 8;
-      uint4 v4 = make_uint4(0, 0, 0, 0);
-      if (q0 + r < S && d8 < D)
-        v4 = *reinterpret_cast<const uint4*>(qb + (q0 + r) * qs.s + d8);
-      *reinterpret_cast<uint4*>(Qs + r * kP + d8) = v4;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(bar(kFullK, s), 1);
+      mbar_init(bar(kFullV, s), 1);
+      mbar_init(bar(kFreeK, s), kWConsumers);
+      mbar_init(bar(kFreeV, s), kWConsumers);
     }
-  } else {
-    for (int i = tid; i < kMBQ * HD; i += kMThreads) {
-      const int r = i / HD, d = i - r * HD;
-      Qs[r * kP + d] = (q0 + r < S && d < D) ? qb[(q0 + r) * qs.s + d] : zero;
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  uint32_t qf[HD / 16][4];                      // Q's A fragments
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = ld32(Qs + r0 * kP + c);
-    qf[kk][1] = ld32(Qs + (r0 + 8) * kP + c);
-    qf[kk][2] = ld32(Qs + r0 * kP + c + 8);
-    qf[kk][3] = ld32(Qs + (r0 + 8) * kP + c + 8);
-  }
-  const int qi0 = q0 + r0, qi1 = qi0 + 8;       // this lane's two rows
 
-  int k_lo = 0, k_hi = Tn;
-  if (causal) k_hi = min(Tn, q0 + kMBQ);
-  if (window) k_lo = max(0, q0 - window + 1);
-  k_lo = (k_lo / kMBK) * kMBK;
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += kMBK) {
-    __syncthreads();                            // Ks / Vt free
-    if (vec) {
-      for (int i = tid; i < kMBK * (HD / 8); i += kMThreads) {
-        const int j = i / (HD / 8), d8 = (i - j * (HD / 8)) * 8;
-        const bool in = k0 + j < Tn;
-        uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-        if (in && d8 < D)
-          kv = *reinterpret_cast<const uint4*>(kb + (k0 + j) * ks.s + d8);
-        if (in && d8 < Dv)
-          vv = *reinterpret_cast<const uint4*>(vb + (k0 + j) * vs.s + d8);
-        *reinterpret_cast<uint4*>(Ks + j * kP + d8) = kv;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) Vt[(d8 + e) * kPV + j] = ve[e];
-      }
-    } else {
-      for (int i = tid; i < kMBK * HD; i += kMThreads) {
-        const int j = i / HD, d = i - j * HD;
-        const bool in = k0 + j < Tn;
-        Ks[j * kP + d] = (in && d < D) ? kb[(k0 + j) * ks.s + d] : zero;
-        Vt[d * kPV + j] = (in && d < Dv) ? vb[(k0 + j) * vs.s + d] : zero;
+  // the warpgroup, uniform as ptxas sees it (a shuffle from lane 0), so
+  // that each role's code is allocated its setmaxnreg count
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kWConsumers / 128) {                  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kWProducerRegs));
+    if (threadIdx.x == kWConsumers) {
+      mbar_expect_tx(bar_q, Cfg::kQ);
+      for (int c = 0; c < HD / 64; ++c)
+        tma_load(sQ + c * kWBQ * 128, &tq, bar_q, c * 64, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kWStages, k0 = k_lo + i * BN;
+        const uint32_t free_ph = (i / kWStages - 1) & 1;
+        if (i >= kWStages) mbar_wait(bar(kFreeK, s), free_ph);
+        mbar_expect_tx(bar(kFullK, s), Cfg::kK);
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load(sK + s * Cfg::kK + c * BN * 128, &tk, bar(kFullK, s),
+                   c * 64, k0, kh, b);
+        if (i >= kWStages) mbar_wait(bar(kFreeV, s), free_ph);
+        mbar_expect_tx(bar(kFullV, s), Cfg::kV);
+        for (int c = 0; c < HDV / 64; ++c)
+          tma_load(sV + s * Cfg::kV + c * BN * 128, &tv, bar(kFullV, s),
+                   c * 64, k0, kh, b);
       }
     }
-    __syncthreads();
+  } else {                                          // a consumer warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kWConsumerRegs));
+    const int wg = warp >> 2, wq = warp & 3;
+    Rows r;
+    r.t = lane & 3;
+    r.r_lo = q0 + wg * 64;
+    r.qi0 = r.r_lo + wq * 16 + (lane >> 2);
+    r.qi1 = r.qi0 + 8;
+    r.m0 = r.m1 = -INFINITY;
+    r.l0 = r.l1 = 0.f;
+    const uint32_t sQw = sQ + wg * 64 * 128;
+    float oacc[HDV / 2], sc[BN / 2];
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int j = 0; j < HDV / 2; ++j) oacc[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) sc[j] = 0.f;
+    float a0, a1;
 
-    float s[kMBK / 8][4];
+    // S = Q K^T of tile i into sc (issued, not waited for)
+    const auto issue_qk = [&](int i) {
+      const int s = i % kWStages;
+      mbar_wait(bar(kFullK, s), (i / kWStages) & 1);
+      const uint64_t dq = sw128_desc(sQw, 16, 1024);
+      const uint64_t dk = sw128_desc(sK + s * Cfg::kK, 16, 1024);
+      pin(sc);
+      wg_fence();
 #pragma unroll
-    for (int n = 0; n < kMBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kMBK / 8; ++n) {
-        const __nv_bfloat16* kr = Ks + (n * 8 + g) * kP + kk * 16 + 2 * t;
-        mma_bf16(s[n], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                 ld32(kr), ld32(kr + 8));
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        // k-step kk: box kk / 4, 32 bytes (16 columns) a step inside it;
+        // descriptors count 16-byte units
+        const uint32_t off = (kk & 3) * 2;
+        Wgmma<BN>::ss(sc, dq + (kk >> 2) * (kWBQ * 8) + off,
+                      dk + (kk >> 2) * (BN * 8) + off, kk > 0);
       }
+      wg_commit();
+    };
+
+    // O += P V of tile i from pa (issued, not waited for)
+    const auto issue_pv = [&](int i) {
+      const int s = i % kWStages;
+      mbar_wait(bar(kFullV, s), (i / kWStages) & 1);
+      const uint64_t dv = sw128_desc(sV + s * Cfg::kV, BN * 128, 1024);
+      pin(oacc);
+      pin(pa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)          // 16 kv rows a step
+        Wgmma<HDV>::rs(oacc, pa[kk], dv + kk * 128);
+      wg_commit();
+    };
+    const auto rescale_o = [&]() {
+#pragma unroll
+      for (int j = 0; j < HDV / 2; ++j) oacc[j] *= (j & 2) ? a1 : a0;
+    };
+
+    mbar_wait(bar_q, 0);
+    if (n_tiles > 0) {
+      issue_qk(0);
+      wg_wait<0>();
+      pin(sc);
+      mbar_arrive(bar(kFreeK, 0));
+      softmax_tile<BN>(sc, r, k_lo, Tn, causal, window, scale_log2, a0, a1);
+      to_a<BN>(sc, pa);
+      // Per tile i: issue S of tile i + 1, rescale O while it runs, issue
+      // O += P V of tile i; the softmax of tile i + 1 runs while the
+      // tensor cores do P V. The loop body has no branch around a wgmma,
+      // so none is serialized.
+      for (int i = 0; i + 1 < n_tiles; ++i) {
+        issue_qk(i + 1);
+        rescale_o();
+        issue_pv(i);
+        wg_wait<1>();                               // S of tile i + 1
+        pin(sc);
+        mbar_arrive(bar(kFreeK, (i + 1) % kWStages));
+        softmax_tile<BN>(sc, r, k_lo + (i + 1) * BN, Tn, causal, window,
+                         scale_log2, a0, a1);
+        wg_wait<0>();                               // P V of tile i
+        pin(oacc);
+        pin(pa);
+        mbar_arrive(bar(kFreeV, i % kWStages));
+        to_a<BN>(sc, pa);
+      }
+      rescale_o();
+      issue_pv(n_tiles - 1);
+      wg_wait<0>();
+      pin(oacc);
+      pin(pa);
+      mbar_arrive(bar(kFreeV, (n_tiles - 1) % kWStages));
     }
 
-    // mask, scale, online softmax (rows qi0: e = 0, 1; qi1: e = 2, 3)
-    float mloc[2] = {kNegInf, kNegInf};
-    uint64_t keep = 0;
+    float l0 = r.l0, l1 = r.l1;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+    __nv_bfloat16* o0 = o + b * os.b + h * os.h + (long long)r.qi0 * os.s;
+    __nv_bfloat16* o1 = o + b * os.b + h * os.h + (long long)r.qi1 * os.s;
 #pragma unroll
-    for (int n = 0; n < kMBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + n * 8 + 2 * t + (e & 1);
-        const int qi = e < 2 ? qi0 : qi1;
-        bool ok = kj < Tn;
-        if (causal) ok = ok && qi >= kj;
-        if (window) ok = ok && qi - kj < window;
-        if (ok) keep |= 1ull << (n * 4 + e);
-        s[n][e] = ok ? s[n][e] * scale : kNegInf;
-        mloc[e >> 1] = fmaxf(mloc[e >> 1], s[n][e]);
-      }
-    float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mloc[r] = fmaxf(mloc[r], __shfl_xor_sync(0xffffffffu, mloc[r], 1));
-      mloc[r] = fmaxf(mloc[r], __shfl_xor_sync(0xffffffffu, mloc[r], 2));
-      const float m_new = fmaxf(m[r], mloc[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < kMBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (keep >> (n * 4 + e)) & 1ull
-                            ? expf(s[n][e] - m[e >> 1]) : 0.f;
-        s[n][e] = p;
-        psum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l[r] = l[r] * alpha[r] + psum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V, P = hi + lo in bf16
-#pragma unroll
-    for (int kk = 0; kk < kMBK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      const float* pa = s[2 * kk];
-      const float* pb = s[2 * kk + 1];
-      const float pv[4][2] = {{pa[0], pa[1]}, {pa[2], pa[3]},
-                              {pb[0], pb[1]}, {pb[2], pb[3]}};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const __nv_bfloat16 h0 = __float2bfloat16_rn(pv[r][0]);
-        const __nv_bfloat16 h1 = __float2bfloat16_rn(pv[r][1]);
-        hi[r] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-        lo[r] = pack_bf16(pv[r][0] - __bfloat162float(h0),
-                          pv[r][1] - __bfloat162float(h1));
-      }
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const __nv_bfloat16* vr = Vt + (n * 8 + g) * kPV + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(vr), b1 = ld32(vr + 8);
-        mma_bf16(acc[n], hi[0], hi[1], hi[2], hi[3], b0, b1);
-        mma_bf16(acc[n], lo[0], lo[1], lo[2], lo[3], b0, b1);
-      }
-    }
-  }
-
-  const float inv0 = 1.f / (l[0] == 0.f ? 1.f : l[0]);
-  const float inv1 = 1.f / (l[1] == 0.f ? 1.f : l[1]);
-  __nv_bfloat16* o0 = o + b * os.b + h * os.h + (long long)qi0 * os.s;
-  __nv_bfloat16* o1 = o + b * os.b + h * os.h + (long long)qi1 * os.s;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = n * 8 + 2 * t + e;
+    for (int n = 0; n < HDV / 8; ++n) {
+      const int c = n * 8 + 2 * r.t;
       if (c >= Dv) continue;
-      if (qi0 < S) o0[c] = __float2bfloat16_rn(acc[n][e] * inv0);
-      if (qi1 < S) o1[c] = __float2bfloat16_rn(acc[n][2 + e] * inv1);
+      if (r.qi0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + c) = __floats2bfloat162_rn(
+            oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+      if (r.qi1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + c) = __floats2bfloat162_rn(
+            oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
     }
   }
 }
 
-template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int Tn, int D, int Dv, Strides qs,
-               Strides ks, Strides vs, Strides os, int causal, int window,
-               float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-      (size_t)((kMBQ + kMBK) * (HD + kPad) + HD * (kMBK + kPad));
-  auto kern = flash_fwd_mma_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const auto ok8 = [](const void* p, Strides st) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 &&
-           st.h % 8 == 0 && st.s % 8 == 0;
-  };
-  const bool vec = D % 8 == 0 && Dv % 8 == 0 && ok8(q, qs) && ok8(k, ks) &&
-                   ok8(v, vs);
-  const dim3 grid((S + kMBQ - 1) / kMBQ, B * H);
-  kern<<<grid, kMThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H, H / K, S, Tn, D, Dv,
-      qs, ks, vs, os, causal != 0, window, scale, vec);
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (batch, head, seq, dim) tensor read through its strides, as
+// a 4-D map (dim, seq, head, batch) of 64 x rows boxes, 128-byte swizzle,
+// zeros outside.
+int make_map(CUtensorMap* map, const void* ptr, int dim, int seq, int heads,
+             int batch, Strides st, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t sizes[4] = {(cuuint64_t)dim, (cuuint64_t)seq,
+                               (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), sizes, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD, int HDV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int H, int K, int S, int Tn, int D, int Dv, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  using Cfg = WgTile<HD, HDV>;
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, D, S, H, B, qs, kWBQ);
+  if (err == 0) err = make_map(&tk, k, D, Tn, K, B, ks, Cfg::kBN);
+  if (err == 0) err = make_map(&tv, v, Dv, Tn, K, B, vs, Cfg::kBN);
+  if (err != 0) return err;
+  auto kern = flash_fwd_wgmma_kernel<HD, HDV>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kWBQ - 1) / kWBQ, B * H);
+  kern<<<grid, kWThreads, Cfg::kSmem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, H, H / K, S, Tn, Dv, os, causal != 0,
+      window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dispatch_wgmma_dv(const void* q, const void* k, const void* v, void* o,
+                      int B, int H, int K, int S, int Tn, int D, int Dv,
+                      Strides qs, Strides ks, Strides vs, Strides os,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
+  switch ((Dv + 63) / 64) {
+    case 1:
+      return launch_wgmma<HD, 64>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
+                                  vs, os, causal, window, scale, stream);
+    case 2:
+      return launch_wgmma<HD, 128>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
+                                   vs, os, causal, window, scale, stream);
+    case 3:
+      return launch_wgmma<HD, 192>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
+                                   vs, os, causal, window, scale, stream);
+    default:
+      return launch_wgmma<HD, 256>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
+                                   vs, os, causal, window, scale, stream);
+  }
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
+                   int B, int H, int K, int S, int Tn, int D, int Dv,
+                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  switch ((D + 63) / 64) {
+    case 1:
+      return dispatch_wgmma_dv<64>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
+                                   vs, os, causal, window, scale, stream);
+    case 2:
+      return dispatch_wgmma_dv<128>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs,
+                                    ks, vs, os, causal, window, scale, stream);
+    case 3:
+      return dispatch_wgmma_dv<192>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs,
+                                    ks, vs, os, causal, window, scale, stream);
+    default:
+      return dispatch_wgmma_dv<256>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs,
+                                    ks, vs, os, causal, window, scale, stream);
+  }
+}
+
+// What the wgmma path needs of a tensor: a 16-byte base pointer and
+// strides that are multiples of 8 elements (16 bytes).
+bool tma_ok(const void* p, Strides st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 &&
+         st.h % 8 == 0 && st.s % 8 == 0;
 }
 
 template <typename T>
@@ -486,27 +956,33 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 // q (B, H, S, D), k (B, K, Tn, D), v (B, K, Tn, Dv), o (B, H, S, Dv), each
 // given by its (batch, head, sequence) element strides with a unit stride
 // along the last dim; H % K == 0; D, Dv <= 256. dtype: 0 float32,
-// 1 bfloat16 (all four tensors alike). bf16 with D, Dv <= 128 (every
-// GQA config of the reference) takes the tensor-core path; f32, and bf16
-// with a wider head (MLA's prefill, D 192), the fp32-core path.
+// 1 bfloat16 (all four tensors alike). path, as the wrapper's _path
+// chose it: 0 the fp32-core kernel, 1 wgmma + TMA (bf16, D, Dv
+// multiples of 8, tensors as tma_ok wants).
+// A path that does not take these inputs returns cudaErrorInvalidValue
+// and launches nothing.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int K, int S, int Tn, int D, int Dv, const long long* strides,
-    int causal, int window, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int path, int B, int H, int K, int S, int Tn, int D, int Dv,
+    const long long* strides, int causal, int window, float scale,
+    void* stream) {
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks, vs, os,
-                           causal, window, scale, (cudaStream_t)stream);
-  if (D <= 64 && Dv <= 64)
-    return launch_mma<64>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks, vs, os,
-                          causal, window, scale, (cudaStream_t)stream);
-  if (D <= 128 && Dv <= 128)
-    return launch_mma<128>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks, vs, os,
-                           causal, window, scale, (cudaStream_t)stream);
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
-                                 vs, os, causal, window, scale,
-                                 (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D > 256 || Dv > 256 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (path == 0) {
+    if (dtype == 0)
+      return dispatch<float>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks, vs,
+                             os, causal, window, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks,
+                                   vs, os, causal, window, scale, st);
+  }
+  if (path == 1 && dtype == 1 && D % 8 == 0 && Dv % 8 == 0 &&
+      tma_ok(q, qs) && tma_ok(k, ks) && tma_ok(v, vs))
+    return dispatch_wgmma(q, k, v, o, B, H, K, S, Tn, D, Dv, qs, ks, vs, os,
+                          causal, window, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -5,10 +5,13 @@ Positions are implicit (q and k both start at 0, contiguous), as in the
 train / prefill paths that call it; masked scores are ``-1e30``; a row
 with no key kept is 0; the scale is ``1/sqrt(D)`` of the *q* head dim.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-(``csrc/flash_attention.cu``) or raises; on a CPU tensor it runs the
-plain version beside it, dense masked softmax attention (the reference's
-``flash_attention/ref.py``). ``LAUNCHES`` counts kernel launches.
+On a CUDA tensor the wrapper launches one of the hand-written Hopper
+kernels (``csrc/flash_attention.cu``) or raises; ``_path`` picks it from
+the dtype, the head dims and the alignment alone. On a CPU tensor it
+runs the plain version beside it, dense masked softmax attention (the
+reference's ``flash_attention/ref.py``). ``LAUNCHES["flash_attention"]``
+counts every kernel launch, ``LAUNCHES["flash_attention_<path>"]`` those
+of each path.
 """
 from __future__ import annotations
 
@@ -25,10 +28,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _I, _I, _F, _P],
+                            _I, _P, _I, _I, _F, _P],
 }
+# the C entry's path codes
+PATHS = {"fp32": 0, "wgmma": 1}
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, **{f"flash_attention_{p}": 0
+                                     for p in PATHS}}
 
 
 def _lib():
@@ -84,6 +90,33 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+def _path(dtype, D: int, Dv: int, aligned: bool) -> str:
+    """The kernel a CUDA call runs. "wgmma" (tensor cores fed by TMA):
+    bf16 with D and Dv multiples of 8 up to 256 and ``aligned`` tensors;
+    "fp32" (the fp32 cores): float32, and the bf16 that TMA cannot
+    take."""
+    if (dtype == torch.bfloat16 and aligned and D % 8 == 0 and Dv % 8 == 0
+            and max(D, Dv) <= MAX_HEAD_DIM):
+        return "wgmma"
+    return "fp32"
+
+
+def _strides(t) -> list:
+    """(batch, head, seq) element strides; a dim of size 1 is never
+    stepped, so it gets its contiguous stride (TMA checks every one)."""
+    n = t.shape
+    contiguous = (n[1] * n[2] * n[3], n[2] * n[3], n[3])
+    return [st if size > 1 else c
+            for st, size, c in zip(t.stride()[:3], n[:3], contiguous)]
+
+
+def _aligned(tensors, strides) -> bool:
+    """What TMA asks of each tensor: a 16-byte base pointer and strides
+    that are multiples of 8 elements."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors) and all(
+        st % 8 == 0 for st in strides)
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     """Kernel wrapper of ``attention_plain``: q (B,H,S,D), k (B,K,T,D),
     v (B,K,T,Dv), any strides over the first three dims (the last is
@@ -101,15 +134,16 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention: the last dim must be unit-stride")
     out = torch.empty((B, H, S, Dv), dtype=q.dtype, device=q.device)
     if out.numel():
-        strides = (ctypes.c_longlong * 12)(
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3])
+        ins = [*_strides(q), *_strides(k), *_strides(v)]
+        path = _path(q.dtype, D, Dv, _aligned((q, k, v), ins))
+        strides = (ctypes.c_longlong * 12)(*ins, *out.stride()[:3])
         _build.check(_lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, K, S, T, D, Dv, strides, int(causal),
-            int(window), 1.0 / math.sqrt(D), _build.stream_ptr(q)),
-            "flash_attention")
+            _DTYPES[q.dtype], PATHS[path], B, H, K, S, T, D, Dv, strides,
+            int(causal), int(window), 1.0 / math.sqrt(D),
+            _build.stream_ptr(q)), f"flash_attention ({path})")
         LAUNCHES["flash_attention"] += 1
+        LAUNCHES[f"flash_attention_{path}"] += 1
     return out
 
 

@@ -11,6 +11,8 @@ are the reference's kernel tolerances (tests/test_kernels.py): flash
 atol 2e-5 in f32 and 2e-2 in bf16; ssd (atol 2e-4, rtol 1e-5) in f32
 and (0.1, 3e-2) in bf16; moe_gmm atol 1e-5 with an f32 output and 2e-2
 with a bf16 one."""
+import math
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -39,10 +41,9 @@ FA_CASES = [  # (B, H, K, S, T, D, Dv, causal, window)
     (2, 6, 2, 130, 130, 64, 64, False, 0),          # non-causal, ragged S
     (1, 2, 1, 100, 60, 80, 48, True, 0),            # S != T, D != Dv
     (1, 2, 2, 40, 8, 16, 24, False, 4),             # fully-masked rows
-    (1, 2, 2, 70, 70, 36, 36, True, 0),             # D % 8 != 0: loads
-                                                    # value by value
-    (1, 2, 1, 100, 100, 200, 160, True, 0),         # bf16 D > 128: the
+    (1, 2, 2, 70, 70, 36, 36, True, 0),             # D % 8 != 0: the
                                                     # fp32-core path
+    (1, 2, 1, 100, 100, 200, 160, True, 0),         # D, Dv > 128
     (1, 16, 16, 1024, 1024, 192, 128, True, 0),     # MLA prefill: q/k
                                                     # nope 128 + rope 64
 ]
@@ -58,14 +59,82 @@ def test_flash_kernel_matches_plain(card, B, H, K, S, T, D, Dv, causal,
     def r(*shape):
         return torch.randn(*shape, generator=g).to(_DTYPES[dtype]).to(card)
     q, k, v = r(B, H, S, D), r(B, K, T, D), r(B, K, T, Dv)
-    n = fa.LAUNCHES["flash_attention"]
+    # fresh contiguous tensors: bf16 with head dims that are multiples of
+    # 8 takes the wgmma path, D 36 the fp32-core one
+    want = ("fp32" if dtype == "float32" or D % 8 or Dv % 8 else "wgmma")
+    _flash_matches_plain(q, k, v, causal, window, dtype, want)
+
+
+def _flash_matches_plain(q, k, v, causal, window, dtype, path):
+    """One launch, on ``path`` (by the per-path count), within the
+    dtype's tolerance of the plain version; -> (out, plain)."""
+    n = dict(fa.LAUNCHES)
     out = fa.flash_attention_bhsd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == n + 1
+    assert fa.LAUNCHES["flash_attention"] == n["flash_attention"] + 1
+    assert {p: fa.LAUNCHES[f"flash_attention_{p}"]
+            - n[f"flash_attention_{p}"] for p in fa.PATHS} == {
+        p: int(p == path) for p in fa.PATHS}
     plain = fa.attention_plain(q, k, v, causal=causal, window=window)
     atol, rtol = FA_TOL[dtype]
     torch.testing.assert_close(out.float(), plain.float(), atol=atol,
                                rtol=rtol)
+    return out, plain
+
+
+# (layout, B, H, K, S, T, D, Dv, causal, window, bf16 path). layout
+# "bhsd": contiguous (B, H, S, D); "bshd": (B, S, H, D) tensors passed
+# as transposed views, as the model does; "qkv": q, k, v slices of one
+# fused (B, S, H + 2K, D) projection; "shift": every tensor one element
+# past a 16-byte boundary (TMA refuses it)
+FA_PATH_CASES = [
+    ("bhsd", 4, 16, 16, 2048, 2048, 192, 128, True, 0, "wgmma"),  # MLA
+    ("bhsd", 1, 4, 4, 512, 512, 256, 256, True, 0, "wgmma"),
+    ("bhsd", 1, 4, 2, 300, 300, 120, 120, True, 0, "wgmma"),  # zero fill
+    ("bhsd", 2, 4, 2, 333, 457, 64, 64, True, 0, "wgmma"),    # S != T
+    ("bhsd", 2, 4, 2, 333, 200, 128, 64, False, 0, "wgmma"),
+    ("bhsd", 2, 8, 8, 1000, 1000, 128, 128, True, 200, "wgmma"),  # window
+    ("bhsd", 1, 4, 4, 700, 700, 64, 64, False, 100, "wgmma"),
+    ("bhsd", 2, 16, 4, 512, 512, 64, 64, True, 0, "wgmma"),   # GQA G = 4
+    ("bhsd", 1, 2, 2, 300, 40, 64, 64, False, 8, "wgmma"),    # rows 47..
+                                                              # see no key
+    ("bshd", 2, 16, 16, 2048, 2048, 192, 128, True, 0, "wgmma"),
+    ("qkv", 2, 32, 8, 1024, 1024, 64, 64, True, 0, "wgmma"),
+    ("shift", 1, 4, 2, 300, 300, 64, 64, True, 0, "fp32"),
+    ("bhsd", 1, 2, 1, 100, 100, 200, 164, True, 0, "fp32"),   # Dv % 8
+]
+
+
+def _layout(layout, B, H, K, S, T, D, Dv, r):
+    if layout == "bhsd":
+        return r(B, H, S, D), r(B, K, T, D), r(B, K, T, Dv)
+    if layout == "bshd":
+        return (r(B, S, H, D).transpose(1, 2), r(B, T, K, D).transpose(1, 2),
+                r(B, T, K, Dv).transpose(1, 2))
+    if layout == "qkv":
+        qkv = r(B, S, H + 2 * K, D).transpose(1, 2)
+        return qkv[:, :H], qkv[:, H:H + K], qkv[:, H + K:]
+    def shifted(*shape):
+        n = math.prod(shape)
+        return r(n + 1)[1:].view(*shape)
+    return shifted(B, H, S, D), shifted(B, K, T, D), shifted(B, K, T, Dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout,B,H,K,S,T,D,Dv,causal,window,path",
+                         FA_PATH_CASES)
+def test_flash_paths_match_plain(card, layout, B, H, K, S, T, D, Dv, causal,
+                                 window, path, dtype):
+    g = torch.Generator().manual_seed(1)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(_DTYPES[dtype]).to(card)
+    q, k, v = _layout(layout, B, H, K, S, T, D, Dv, r)
+    out, plain = _flash_matches_plain(q, k, v, causal, window, dtype,
+                                      "fp32" if dtype == "float32" else path)
+    empty = ~fa._mask(S, T, causal, window, card).any(dim=-1)
+    assert torch.all(out[:, :, empty] == 0)
 
 
 SSD_CASES = [  # (b, s, h, p, n, chunk)

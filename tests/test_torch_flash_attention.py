@@ -115,3 +115,59 @@ def test_plain_matches_pallas_mla_head_dims(dtype):
     atol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref, np.float32), atol=atol)
+
+
+# (D, Dv) -> the path of bf16 with aligned tensors, and with tensors TMA
+# cannot take; float32 always takes the fp32-core kernel
+PATH_CASES = {
+    (64, 64): ("wgmma", "fp32"),       # zamba2, internlm2
+    (120, 120): ("wgmma", "fp32"),     # h2o-danube: TMA pads to 128
+    (128, 128): ("wgmma", "fp32"),
+    (192, 128): ("wgmma", "fp32"),     # MLA prefill
+    (200, 160): ("wgmma", "fp32"),
+    (256, 256): ("wgmma", "fp32"),
+    (36, 36): ("fp32", "fp32"),        # not a multiple of 8
+    (200, 164): ("fp32", "fp32"),
+}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,Dv", list(PATH_CASES))
+def test_path_choice(D, Dv, dtype, aligned):
+    want = ("fp32" if dtype == "float32"
+            else PATH_CASES[D, Dv][0 if aligned else 1])
+    assert fa._path(_TORCH[dtype], D, Dv, aligned) == want
+
+
+@pytest.mark.parametrize("layout,aligned", [
+    ("bhsd", True), ("bshd", True), ("qkv", True), ("shift", False),
+    ("d36", False)])
+def test_alignment_of_model_layouts(layout, aligned):
+    """The model's (B, S, H, D) views and fused-projection slices suit
+    TMA; a base pointer off a 16-byte boundary or a row stride that is
+    not a multiple of 8 elements does not."""
+    B, S, H, D = 2, 16, 4, 64
+    x = torch.zeros(B, S, 3 * H, D, dtype=torch.bfloat16)
+    if layout == "bhsd":
+        ts = [torch.zeros(B, H, S, D, dtype=torch.bfloat16)] * 3
+    elif layout == "bshd":
+        ts = [torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+              ] * 3
+    elif layout == "qkv":
+        ts = [x[:, :, i * H:(i + 1) * H].transpose(1, 2) for i in range(3)]
+    elif layout == "shift":
+        ts = [x.view(-1)[1:1 + B * H * S * D].view(B, H, S, D)] * 3
+    else:
+        ts = [torch.zeros(B, H, S, 36, dtype=torch.bfloat16)] * 3
+    strides = [st for t in ts for st in fa._strides(t)]
+    assert fa._aligned(ts, strides) == aligned
+
+
+def test_strides_of_unit_dims_are_contiguous():
+    """A dim of size 1 is never stepped: its stride is replaced by the
+    contiguous one (TMA checks every stride), the others kept."""
+    t = torch.zeros(1, 6, 1, 3, 8).select(2, 0).transpose(1, 2)  # (1,3,6,8)
+    assert fa._strides(t) == [144, 8, 24]
+    t = torch.zeros(5, 7, 16)[:, None]                             # (5,1,7,16)
+    assert fa._strides(t) == [112, 112, 16]
