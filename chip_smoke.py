@@ -33,19 +33,26 @@ non-zero exit:
             on the fp32-core path: tensors off a 16-byte boundary at
             both serving shapes, and D or Dv not a multiple of 8; ssd,
             f32 and bf16: the serving shape with a nonzero initial
-            state, and p = 64, n = 128; moe_gmm: deepseek's prefill and
-            decode shapes in bf16, bf16 x with f32 weights at the
-            prefill shape, and the reference's five kernel-test cases,
-            gelu and non-128 shapes included), then cold / warm device time, plain time, bound
-            and, for flash, the path, the achieved TFLOP/s and the time
-            of PyTorch's SDPA at both serving shapes (a yardstick only;
-            the port never calls it).
+            state, and p = 64, n = 128; moe_gmm, each case on its
+            asserted path: deepseek's prefill (wgmma) and decode
+            (stream) shapes in bf16, bf16 x with f32 weights at the
+            prefill shape, d not a multiple of 8, and x off a 16-byte
+            boundary at the decode shape (mma), and the reference's
+            five kernel-test cases, gelu and non-128 shapes included),
+            then cold / warm device time, plain time, bound and, for
+            flash, the path, the achieved TFLOP/s and the time of
+            PyTorch's SDPA at both serving shapes (a yardstick only; the
+            port never calls it); for moe_gmm at both serving shapes,
+            three bf16 ``torch.bmm`` of the same shapes (a yardstick
+            only), and the stream / wgmma threshold sweep: both paths'
+            cold time at C 8 to 256 (E 64, d 2048, F 1408).
 7. serve    zamba2-1.2b at full width (38 layers, d_model 2048, vocab
             32000) in bf16 with attn_impl="pallas", through
             ``repro_torch.launch.serve.generate``: batch 4, prompt 2048,
             32 greedy tokens; flash must launch exactly 6 times, all on
             the wgmma path, and the SSD scan 32 times (one prefill).
-            Prints prefill seconds, decode tokens/s and peak memory.
+            Prints prefill seconds, decode tokens/s, peak memory and the
+            prefill and decode profiles.
 8. serve_parity  zamba2 at 6 layers (both block kinds), d_model 256, in
             float32, card vs CPU: prefill and decode logits within 1e-4,
             both sides stepped with the CPU's greedy tokens.
@@ -55,10 +62,13 @@ non-zero exit:
             f32 would hold 62.8 GB of the 80) and attn_impl="pallas",
             through ``generate``: batch 4, prompt 2048, 32 greedy tokens.
             One prefill must launch moe_gmm exactly 26 times and flash 27
-            times, all on the wgmma path, the whole generate moe_gmm 858
-            times (26 per prefill and per decode step). Prints init
-            seconds, prefill seconds, decode tokens/s, peak memory and a
-            prefill profile.
+            times, all on their wgmma paths, the whole generate moe_gmm
+            858 times (26 per prefill and per decode step): 26 on wgmma
+            and the 832 of the decode steps on stream. Prints init
+            seconds, prefill seconds, decode tokens/s, peak memory, a
+            prefill profile and a decode profile (device ms by kernel
+            group over the decode steps of one generate, with the idle
+            share).
 10. serve_moe_parity  reduced deepseek (a dense and an MoE layer, MLA)
             in float32, card vs CPU: prefill and decode logits within
             1e-4, both sides stepped with the CPU's greedy tokens.
@@ -448,21 +458,35 @@ SSD_CASES = [  # (b, s, h, p, n, chunk)
     (4, 2048, 64, 64, 64, 128),         # zamba2 SSM layers, prefill
     (2, 1024, 8, 64, 128, 128),         # mamba2's p, n
 ]
-# (E, C, d, F, act, x dtype, weight dtype, input scales). C is
-# moe.py's capacity at factor 1.25, top-6 of 64 experts: 960 for a
-# 4 x 2048 prefill, the floor of 8 for a 4-token decode step.
+# (E, C, d, F, act, x dtype, weight dtype, input scales, path, shift).
+# C is moe.py's capacity at factor 1.25, top-6 of 64 experts: 960 for a
+# 4 x 2048 prefill, the floor of 8 for a 4-token decode step. shift: x
+# one element past a 16-byte boundary (TMA refuses it).
 GMM_CASES = {
-    "prefill": (64, 960, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),
-    "decode": (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),
+    "prefill": (64, 960, 2048, 1408, "silu", "bfloat16", "bfloat16", "model",
+                "wgmma", False),
+    "decode": (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model",
+               "stream", False),
     "prefill_f32_weights": (64, 960, 2048, 1408, "silu", "bfloat16",
-                            "float32", "model"),
+                            "float32", "model", "mma", False),
+    "decode_shifted": (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16",
+                       "model", "mma", True),
+    "d_not_8": (8, 96, 2044, 1400, "silu", "bfloat16", "bfloat16", "model",
+                "mma", False),
     # tests/test_kernels.py GMM_CASES, at its scales
-    "ref_0": (4, 64, 128, 256, "silu", "float32", "float32", "ref"),
-    "ref_1": (2, 128, 64, 512, "gelu", "float32", "float32", "ref"),
-    "ref_2": (8, 32, 256, 128, "silu", "float32", "float32", "ref"),
-    "ref_3": (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref"),
-    "ref_4": (3, 40, 96, 192, "gelu", "float32", "float32", "ref"),
+    "ref_0": (4, 64, 128, 256, "silu", "float32", "float32", "ref", "f32",
+              False),
+    "ref_1": (2, 128, 64, 512, "gelu", "float32", "float32", "ref", "f32",
+              False),
+    "ref_2": (8, 32, 256, 128, "silu", "float32", "float32", "ref", "f32",
+              False),
+    "ref_3": (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref",
+              "stream", False),
+    "ref_4": (3, 40, 96, 192, "gelu", "float32", "float32", "ref", "f32",
+              False),
 }
+# the stream / wgmma threshold sweep: C at E 64, d 2048, F 1408
+GMM_SWEEP_C = (8, 16, 32, 64, 128, 256)
 
 
 def fa_inputs(torch, case, dtype, gen, shift=False):
@@ -495,15 +519,18 @@ def gmm_inputs(torch, case, gen):
     scaled by 1/sqrt of its contracted dim, so g, u and y are O(1):
     |y| <= ~4 at the prefill shape, where a one-ulp difference of two
     bf16 roundings (2^-6 at [2, 4)) is inside the 2e-2 tolerance."""
-    E, C, d, F, _, xdt, wdt, scale = case
+    E, C, d, F, _, xdt, wdt, scale, _, shift = case
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     sx, sg, sd = ((0.5, 0.05, 0.05) if scale == "ref"
                   else (1.0, d ** -0.5, F ** -0.5))
 
     def r(shape, sc, dt):
         return (torch.randn(*shape, generator=gen) * sc).to(dts[dt]).cuda()
-    return (r((E, C, d), sx, xdt), r((E, d, F), sg, wdt),
-            r((E, d, F), sg, wdt), r((E, F, d), sd, wdt))
+    x = r((E, C, d), sx, xdt)
+    if shift:
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(E, C, d)
+    return (x, r((E, d, F), sg, wdt), r((E, d, F), sg, wdt),
+            r((E, F, d), sd, wdt))
 
 
 def kept_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -546,12 +573,19 @@ def flash_paths() -> dict:
     return {p: fa.LAUNCHES[f"flash_attention_{p}"] for p in fa.PATHS}
 
 
-def path_taken(before: dict) -> str:
-    """The one path launched since ``before``."""
-    now = flash_paths()
+def gmm_paths() -> dict:
+    """moe_gmm launches so far, by kernel path."""
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    return {p: gmm.LAUNCHES[f"moe_gmm_{p}"] for p in gmm.PATHS}
+
+
+def path_taken(paths, before: dict) -> str:
+    """The one path of ``paths()`` launched since ``before``."""
+    now = paths()
     moved = [p for p in now if now[p] != before[p]]
     if len(moved) != 1 or now[moved[0]] != before[moved[0]] + 1:
-        fail(f"flash: expected one launch, got {before} -> {now}")
+        fail(f"{paths.__name__}: expected one launch, got {before} -> "
+             f"{now}")
     return moved[0]
 
 
@@ -573,7 +607,7 @@ def check_lm_kernels(torch, gen):
         out = fa_ops.flash_attention(q, k, v, window=window,
                                      causal=causal)
         torch.cuda.synchronize()
-        path = path_taken(before)
+        path = path_taken(flash_paths, before)
         want = ("wgmma" if name == "bfloat16" and not shift
                 and case[4] % 8 == 0 and case[5] % 8 == 0 else "fp32")
         if path != want:
@@ -613,14 +647,19 @@ def check_lm_kernels(torch, gen):
             worst["ssd_scan"] = max(worst["ssd_scan"], err)
     for label, case in GMM_CASES.items():
         x, wg, wu, wd = gmm_inputs(torch, case, gen)
+        before = gmm_paths()
         y = gmm.moe_gmm(x, wg, wu, wd, act=case[4])
         torch.cuda.synchronize()
+        path = path_taken(gmm_paths, before)
+        if path != case[8]:
+            fail(f"moe_gmm {label}: ran the {path} path, want {case[8]}")
         yp = gmm.moe_gmm_plain(x, wg, wu, wd, act=case[4])
         err = float((y.float() - yp.float()).abs().max())
         tol = GMM_TOL[case[5]]
         emit("lm_kernel_check", name="moe_gmm", case=label, shape=case[:4],
-             act=case[4], x_dtype=case[5], w_dtype=case[6],
-             max_abs_err=err, tol=tol, y_abs_max=float(yp.abs().max()))
+             act=case[4], x_dtype=case[5], w_dtype=case[6], path=path,
+             shift=case[9], max_abs_err=err, tol=tol,
+             y_abs_max=float(yp.abs().max()))
         if not (err <= tol and y.dtype == x.dtype):
             fail(f"moe_gmm {label} {case}: max abs err {err} over {tol}")
         worst["moe_gmm"] = max(worst["moe_gmm"], err)
@@ -656,7 +695,7 @@ def phase_lm_kernels(torch):
         before = flash_paths()
         kern()
         torch.cuda.synchronize()
-        path = path_taken(before)
+        path = path_taken(flash_paths, before)
         row, extra = timed_row(
             kern,
             lambda: fa.attention_plain(qh, kh, vh, causal=causal,
@@ -672,7 +711,7 @@ def phase_lm_kernels(torch):
         return row, extra
 
     def gmm_row(label):
-        E, C, d, Fd, act, xdt, wdt, _ = case = GMM_CASES[label]
+        E, C, d, Fd, act, xdt, wdt, _, want, _ = case = GMM_CASES[label]
         x, wg, wu, wd = gmm_inputs(torch, case, gen)
         n_bytes = (2 * x.numel() * x.element_size()
                    + 3 * wg.numel() * wg.element_size())
@@ -683,7 +722,8 @@ def phase_lm_kernels(torch):
             lambda: gmm.moe_gmm_plain(x, wg, wu, wd, act=act), None,
             list(case[:4]) + [xdt, wdt], bound(n_bytes, n_ops, rate), n_ops,
             worst["moe_gmm"])
-        if label == "prefill":
+        extra["path"] = want
+        if label in ("prefill", "decode"):
             # yardstick only: three bf16 torch.bmm of the same shapes
             # (cuBLAS), no activation; the port never calls it
             h = torch.empty((E, C, Fd), dtype=x.dtype, device=x.device)
@@ -691,6 +731,29 @@ def phase_lm_kernels(torch):
                 lambda: (torch.bmm(x, wg), torch.bmm(x, wu),
                          torch.bmm(h, wd)), True, 5) for _ in range(2))
         return row, extra
+
+    def gmm_sweep():
+        """Cold device time of the stream and wgmma pairs at each C of
+        GMM_SWEEP_C, in turns (stream, wgmma, wgmma, stream; the better
+        of each pair); the stream kernel takes C up to 64."""
+        E, _, d, Fd = GMM_CASES["decode"][:4]
+        w = gmm_inputs(torch, (E, 1) + GMM_CASES["decode"][2:], gen)[1:]
+        rows = []
+        for C in GMM_SWEEP_C:
+            x = (torch.randn(E, C, d, generator=gen)
+                 .to(torch.bfloat16).cuda())
+            runs = {p: (lambda p=p: gmm._launch(x, *w, "silu", p))
+                    for p in ("stream", "wgmma")
+                    if p == "wgmma" or C <= 64}
+            order = list(runs) + list(runs)[::-1]
+            ms = {p: [] for p in runs}
+            for p in order:
+                ms[p].append(device_ms(runs[p], True, 5))
+            rows.append({"C": C, **{f"{p}_ms": min(v) for p, v in ms.items()},
+                         "chosen": gmm._path(x.dtype, w[0].dtype, C, d, Fd,
+                                             True)})
+        return {"shape": [E, "C", d, Fd], "stream_max_c": gmm.STREAM_MAX_C,
+                "rows": rows}
 
     sc = SSD_CASES[0]
     x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, torch.bfloat16, gen)
@@ -725,6 +788,8 @@ def phase_lm_kernels(torch):
         timed[name] = row
         emit("kernel", name=name, **row, **extra)
         torch.cuda.empty_cache()
+    emit("moe_gmm_threshold_sweep", **gmm_sweep())
+    torch.cuda.empty_cache()
     return timed
 
 
@@ -735,17 +800,20 @@ GROUPS = (("flash_attention", ("flash_fwd",)), ("ssd_scan", ("ssd_scan",)),
           ("gemm", ("gemm", "cutlass", "xmma", "nvjet")))
 
 
-def prefill_breakdown(torch, fn, wall_s: float) -> dict:
-    """Device time of one prefill by kernel group (profiler CUDA
-    activity), beside the host-clock time of a prefill. The profiler now
-    and then reports nothing for a session: up to three sessions, and
-    ``kernels_seen`` says whether one reported."""
+def _device_times(torch, fn) -> dict:
+    """{kernel name: device µs} of one call of fn. The profiler now and
+    then reports nothing for a session: up to three sessions."""
     times = {}
     for _ in range(3):
         with torch.no_grad():
             times = _profile(fn, 1)
         if times:
             break
+    return times
+
+
+def _by_group(times: dict) -> dict:
+    """{group: device ms} of a {kernel name: device µs}."""
     groups = {g: 0.0 for g, _ in GROUPS}
     groups["elementwise_and_copies"] = 0.0
     for name, us in times.items():
@@ -754,12 +822,40 @@ def prefill_breakdown(torch, fn, wall_s: float) -> dict:
                       if any(k in low for k in keys)),
                      "elementwise_and_copies")
         groups[group] += us / 1e3
+    return groups
+
+
+def prefill_breakdown(times: dict, wall_s: float) -> dict:
+    """Device time of one prefill by kernel group (``times``, from
+    _device_times), beside the host-clock time of a prefill;
+    ``kernels_seen`` says whether a profiler session reported."""
+    groups = _by_group(times)
     busy_ms = sum(groups.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms_by_group": groups, "device_busy_ms": busy_ms,
             "kernels_seen": len(times), "wall_ms": wall_s * 1e3,
             "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+
+
+def decode_breakdown(torch, generate_fn, prefill_times: dict,
+                     prefill_s: float, generate_s: float,
+                     steps: int) -> dict:
+    """Device time of the decode steps of one generate by kernel group:
+    a profiled generate less the profiled prefill, group by group;
+    beside it the decode's host-clock time (a generate less a prefill)
+    and the share of it the card was idle."""
+    gen_times = _device_times(torch, generate_fn)
+    gen_groups = _by_group(gen_times)
+    pre_groups = _by_group(prefill_times)
+    groups = {g: gen_groups[g] - pre_groups[g] for g in gen_groups}
+    busy_ms = sum(groups.values())
+    wall_ms = (generate_s - prefill_s) * 1e3
+    return {"device_ms_by_group": groups, "device_busy_ms": busy_ms,
+            "device_ms_per_step": busy_ms / steps, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "steps": steps, "kernels_seen": len(gen_times),
+            "prefill_kernels_seen": len(prefill_times)}
 
 
 def serve_full(torch, dev, cfg, tag, per_prefill, per_generate,
@@ -825,9 +921,12 @@ def serve_full(torch, dev, cfg, tag, per_prefill, per_generate,
     if not bool(torch.isfinite(logits.float()).all()):
         fail(f"{tag}: non-finite prefill logits")
     del logits
-    breakdown = prefill_breakdown(
-        torch, lambda: tf.prefill(cfg, params, tokens, prompt + steps),
-        prefill_s)
+    pre_fn = lambda: tf.prefill(cfg, params, tokens, prompt + steps)
+    pre_times = _device_times(torch, pre_fn)
+    breakdown = prefill_breakdown(pre_times, prefill_s)
+    decode = decode_breakdown(
+        torch, lambda: generate(cfg, params, tokens, steps=steps),
+        pre_times, prefill_s, gen_s, steps)
     if not torch.equal(out, out2):
         fail(f"{tag}: two greedy runs of the same prompt differ")
     decode_s = gen_s - prefill_s
@@ -840,6 +939,7 @@ def serve_full(torch, dev, cfg, tag, per_prefill, per_generate,
          prefill_tok_per_s=batch * prompt / prefill_s,
          peak_mem_gb=peak_gb, sample=out[0, :8].tolist())
     emit(f"{tag}_prefill_profile", **breakdown)
+    emit(f"{tag}_decode_profile", **decode)
     del params
     torch.cuda.empty_cache()
     return counts
@@ -872,9 +972,11 @@ def phase_serve_moe(torch, dev):
     steps = 32
     flash = {"flash_attention": cfg.n_layers,
              "flash_attention_wgmma": cfg.n_layers}
+    prefill = {"moe_gmm": n_moe, "moe_gmm_wgmma": n_moe}
     return serve_full(
-        torch, dev, cfg, "serve_moe", {"moe_gmm": n_moe, **flash},
-        {"moe_gmm": n_moe * (1 + steps), **flash}, draw_on_device=True)
+        torch, dev, cfg, "serve_moe", {**prefill, **flash},
+        {"moe_gmm": n_moe * (1 + steps), "moe_gmm_wgmma": n_moe,
+         "moe_gmm_stream": n_moe * steps, **flash}, draw_on_device=True)
 
 
 def serve_parity(torch, dev, cfg, tag, batch=2, prompt=200, steps=8):
@@ -999,7 +1101,9 @@ def main() -> int:
     also = {"flash_attention": {"launches_by_path": flash_by_serve,
                                 "launches_by_kernel_path": by_kernel_path,
                                 "mla": timed["flash_attention_mla"]},
-            "moe_gmm": {"decode": timed["moe_gmm_decode"]}}
+            "moe_gmm": {"launches_by_path": {
+                p: served_moe[f"moe_gmm_{p}"] for p in gmm_paths()},
+                "decode": timed["moe_gmm_decode"]}}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k],
                 "launches": main_path[k],

@@ -11,39 +11,40 @@
 // C 960, d 2048, F 1408, bf16) the three products are 1.06 TFLOP
 // against 1.61 GB of inputs and output, so operations bound it (1.08 ms
 // at 989 TFLOP/s). At its decode shape (C 8) the 1.1 GB of expert
-// weights bound it (0.33 ms).
+// weights bound it (0.33 ms at 3.35 TB/s).
 //
 // Design. The TPU kernel keeps a (rows, d) f32 accumulator in VMEM
 // across F tiles, so the (C, F) hidden never reaches memory. At d = 2048
 // and 64 rows that accumulator is 512 KB, more than the 227 KB of
 // shared memory of a Hopper SM. Here two kernels run back to back on
 // the stream:
-//   1. gate/up: h = act(x Wg) o (x Wu) into an (E, C, F) f32 workspace;
+//   1. gate/up: h = act(x Wg) o (x Wu) into an (E, C, F) workspace;
 //   2. down:    y = h Wd.
-// Each is a tiled product: one block owns one (expert, row tile, column
-// tile) and loops over the contracted dim in slabs staged through
-// shared memory. Blocks walk the column tiles fastest, so the blocks in
-// flight share their row tiles and weight slabs in L2.
-// - x bf16: the products run on the tensor cores (mma.sync.m16n8k16,
-//   bf16 in, f32 accumulate). An operand that is f32 at the source (h;
+// Four paths; the wrapper (kernels/moe_gmm/kernel.py, _path) picks one
+// from the dtypes, C, d, F and the alignment alone, and the C entry
+// refuses a path whose preconditions fail:
+// - "wgmma" (bf16 x and weights, C above the stream threshold, d and F
+//   multiples of 8, 16-byte aligned tensors): the serving prefill. For
+//   operations: wgmma fed by TMA, a producer warpgroup and two consumer
+//   warpgroups (below).
+// - "stream" (the same, C at most the threshold): the serving decode.
+//   For bytes: the weights stream through shared memory by TMA at close
+//   to the card's bandwidth (below).
+// - "mma" (bf16 x with f32 weights; d or F not multiples of 8; tensors
+//   off 16 bytes): mma.sync.m16n8k16 on the tensor cores, operands
+//   staged through registers. An operand that is f32 at the source (h;
 //   the weights when the params are f32) is split into a bf16 high part
 //   and a bf16 remainder, and the product takes hi*hi + hi*lo + lo*hi,
-//   so it keeps ~16 bits of mantissa instead of bf16's 8.
-//   * bf16 weights and C > 16 (the serving prefill): tiles stream into
-//     shared memory by cp.async, three slabs in flight, fragments by
-//     ldmatrix; h is kept in the workspace already split (third kernel
-//     family below).
-//   * otherwise (f32 weights; C <= 16, the decode shape, where the
-//     weights' bytes are the cost; dims not multiples of 8): the next
-//     slab's global loads are issued into registers before the current
-//     slab is multiplied, and split there. Row tiles are 64 rows, or 16
-//     when C <= 16.
-// - x f32: the products run on the fp32 cores, fmaf in order over the
-//   contracted dim, so the result stays within 1e-5 of the f32
-//   arithmetic (the reference's tolerance); bf16 weights are widened
-//   exactly.
-// The path follows the dtypes, never a switch. Rows, columns and the
-// contracted dim are all guarded (zero-filled), so no dim has to be a
+//   so it keeps ~16 bits of mantissa instead of bf16's 8. Row tiles are
+//   64 rows, or 16 when C <= 16.
+// - "f32" (f32 x): the fp32 cores, fmaf in order over the contracted
+//   dim, so the result stays within 1e-5 of the f32 arithmetic (the
+//   reference's tolerance); bf16 weights are widened exactly.
+// On the two TMA paths h is rounded to bf16 once, as flash rounds P:
+// the card's error stays inside the bf16 tolerance (PERF.md has the
+// bound and the measured error); the other paths keep h in f32. Rows,
+// columns and the contracted dim are guarded everywhere (zero-filled by
+// TMA's out-of-bounds fill on the TMA paths), so no dim has to be a
 // multiple of a tile (the reference's sweep has E 3, C 40, d 96, F 192).
 //
 // C interface (loaded with ctypes): returns the first non-zero
@@ -51,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -374,217 +377,365 @@ int launch_mma(const TA* A, const TB* B, const TB* B2, TO* out, int E,
       A, B, B2, out, M, N, K, act);
   return (int)cudaGetLastError();
 }
-
-// ---- x and weights bf16, C > 16: cp.async pipeline + ldmatrix ----
+// ---- bf16 x and weights on wgmma, fed by TMA ----
 //
-// The serving path's case (bf16 activations and params, prefill-sized
-// buckets). Every operand is bf16 at the source, so tiles go straight
-// from device memory to shared memory by 16-byte cp.async, three slabs
-// in flight, and fragments come from ldmatrix (B's transposed). The
-// workspace holds h as a bf16 high part and a bf16 remainder (the same
-// bytes as f32), so the down product reads both halves by cp.async too
-// and takes hi*Wd + lo*Wd: the ~16 bits of mantissa of the register
-// path. 256 threads (8 warps as 4 x 2); a block owns a 128 x 64 output
-// tile (x2 when gated), each warp 32 x 32. Needs d, F multiples of 8
-// and 16-byte aligned tensors (every config; the caller checks).
-constexpr int kPM = 128, kPN = 64, kPK = 32, kPStages = 3, kPThreads = 256;
-constexpr int kPAP = kPK + 8;                   // A row pitch (bf16)
-constexpr int kPBP = kPN + 8;                   // B row pitch (bf16)
+// Tiles come in 128-byte-swizzled TMA boxes of 64 bf16 columns, 8 KB
+// for 64 rows. Every operand is read in its natural layout: x and h
+// (rows of the contracted dim) are K-major, the weights (E, K, cols)
+// MN-major, which wgmma takes through a transpose bit, so nothing is
+// transposed anywhere. Loads complete on a "full" mbarrier per stage;
+// every consumer thread arrives on the stage's "free" mbarrier once the
+// products that read it are done. Each consumer keeps one k-slab of
+// products in flight (wgmma.wait_group 1) while the next is issued.
+constexpr int kBox = 64 * 128;     // bytes of a box of 64 rows
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// A contiguous bf16 (outer, rows, inner) tensor as a 3-D map of
+// 64 x box_rows boxes.
+int make_map3(CUtensorMap* map, const void* ptr, int inner, int rows,
+              int outer, int box_rows) {
+  const cuuint64_t sizes[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                               (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)rows * inner * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return tma_map_bf16(map, ptr, 3, sizes, strides, box);
 }
 
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+// The "wgmma" path (prefill). One block owns one (expert, 128-row tile,
+// column tile) and three warpgroups: two consumers of 64 rows each
+// (wgmma's M) and a producer, which hands its registers to the
+// consumers (setmaxnreg) and whose thread 0 keeps the ring full. A
+// stage is one 64-deep k-slab: the A box (128 rows of x or h) and the B
+// boxes (64 k rows x the tile's columns of Wg and Wu, or of Wd). Per
+// slab a consumer issues 4 k-steps of wgmma m64nNk16 per weight, A
+// K-major, B MN-major. Gated: 128 columns, and the g and u accumulators
+// (2 x 64 f32 a thread) meet in the epilogue as act(g) * u, which is
+// stored to h in bf16. Down: 256 columns (128 f32 a thread), so a slab
+// brings as many operations per byte through L2 as a gated one.
+constexpr int kGRows = 128;
+constexpr int kGThreads = 384, kGConsumers = 256;
+constexpr int kGProducerRegs = 24, kGConsumerRegs = 240;
+constexpr int kGBudget = 200 * 1024;   // bytes of the ring
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0,
-                                       float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-// GATED: A (E, M, K) = x, B / B2 (E, K, N) = Wg / Wu; out / out_lo get
-// the high part and the remainder of act(A B) o (A B2). Else: A / A2 =
-// the two halves of h, B = Wd; out = A B + A2 B (out_lo unused).
 template <bool GATED>
-__global__ void __launch_bounds__(kPThreads)
-gmm_pipe_kernel(const __nv_bfloat16* __restrict__ A,
-                const __nv_bfloat16* __restrict__ A2,
-                const __nv_bfloat16* __restrict__ B,
-                const __nv_bfloat16* __restrict__ B2,
-                __nv_bfloat16* __restrict__ out,
-                __nv_bfloat16* __restrict__ out_lo, int M, int N, int K,
-                int act) {
-  constexpr int kNA = GATED ? 1 : 2, kNB = GATED ? 2 : 1;
-  constexpr int MI = 2, NI = 4;                 // warp tile 32 x 32
-  constexpr int kATile = kPM * kPAP, kBTile = kPK * kPBP;
-  constexpr int kStage = kNA * kATile + kNB * kBTile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+struct GTile {
+  static constexpr int kNW = GATED ? 2 : 1;          // weights
+  static constexpr int kCols = GATED ? 128 : 256;    // output columns
+  static constexpr int kA = kGRows * 128;            // 16 KB
+  static constexpr int kB = (kCols / 64) * kBox;     // 16 / 32 KB a weight
+  static constexpr int kStage = kA + kNW * kB;       // 48 KB
+  static constexpr int kStages = kGBudget / kStage;  // 4
+  static constexpr int kSmem = kStages * kStage + 16 * kStages + 1024;
+};
 
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const size_t a_off = (size_t)e * M * K, b_off = (size_t)e * K * N;
-  const __nv_bfloat16* As[2] = {A + a_off, GATED ? A + a_off : A2 + a_off};
-  const __nv_bfloat16* Bs[2] = {B + b_off, GATED ? B2 + b_off : B + b_off};
+// GATED: A = x (E, M, K), B / B2 = Wg / Wu (E, K, N), out = h (E, M, N)
+// = act(A B) o (A B2). Else A = h, B = Wd, out = y = A B. bf16 out.
+template <bool GATED>
+__global__ void __launch_bounds__(kGThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tb2,
+                 __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                 int act) {
+  using T = GTile<GATED>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + T::kStages * T::kStage;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto freed = [&](int s) { return bars + 8 * (T::kStages + s); };
+  const int e = blockIdx.z, m0 = blockIdx.y * kGRows;
+  const int n0 = blockIdx.x * T::kCols;
+  const int nk = (K + 63) / 64;
 
-  auto load = [&](int stage, int k0) {
-    __nv_bfloat16* sa = smem + stage * kStage;
-#pragma unroll
-    for (int a = 0; a < kNA; ++a)
-#pragma unroll
-      for (int j = 0; j < kPM * kPK / 8 / kPThreads; ++j) {
-        const int c = tid + j * kPThreads;
-        const int r = c / (kPK / 8), kc = (c % (kPK / 8)) * 8;
-        const bool in = m0 + r < M && k0 + kc < K;
-        cp_async16(sa + a * kATile + r * kPAP + kc,
-                   in ? As[a] + (size_t)(m0 + r) * K + k0 + kc : As[a], in);
-      }
-    __nv_bfloat16* sb = sa + kNA * kATile;
-#pragma unroll
-    for (int b = 0; b < kNB; ++b)
-#pragma unroll
-      for (int j = 0; j < kPK * kPN / 8 / kPThreads; ++j) {
-        const int c = tid + j * kPThreads;
-        const int r = c / (kPN / 8), nc = (c % (kPN / 8)) * 8;
-        const bool in = k0 + r < K && n0 + nc < N;
-        cp_async16(sb + b * kBTile + r * kPBP + nc,
-                   in ? Bs[b] + (size_t)(k0 + r) * N + n0 + nc : Bs[b], in);
-      }
-  };
-
-  float acc[kNB][MI][NI][4];
-#pragma unroll
-  for (int o = 0; o < kNB; ++o)
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[o][mi][ni][q] = 0.f;
-
-  const int nk = (K + kPK - 1) / kPK;
-#pragma unroll
-  for (int s = 0; s < kPStages - 1; ++s) {
-    if (s < nk) load(s, s * kPK);
-    cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(freed(s), kGConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kPStages - 2>();              // slab kt has landed
-    __syncthreads();                            // and slab kt-1 is consumed
-    const int pre = kt + kPStages - 1;
-    if (pre < nk) load(pre % kPStages, pre * kPK);
-    cp_async_commit();
-    const __nv_bfloat16* sa = smem + (kt % kPStages) * kStage;
-    const __nv_bfloat16* sb = sa + kNA * kATile;
+  __syncthreads();
+
+  // the warpgroup, uniform as ptxas sees it (a shuffle from lane 0), so
+  // that each role's code is allocated its setmaxnreg count
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kGConsumers / 128) {                  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kGProducerRegs));
+    if (threadIdx.x == kGConsumers) {
+      for (int ks = 0; ks < nk; ++ks) {
+        const int s = ks % T::kStages;
+        if (ks >= T::kStages) mbar_wait(freed(s), (ks / T::kStages - 1) & 1);
+        const uint32_t st = base + s * T::kStage;
+        mbar_expect_tx(full(s), T::kStage);
+        tma_load3(st, &ta, full(s), ks * 64, m0, e);
 #pragma unroll
-    for (int kk = 0; kk < kPK; kk += 16) {
-      uint32_t af[kNA][MI][4];
+        for (int w = 0; w < T::kNW; ++w)
 #pragma unroll
-      for (int a = 0; a < kNA; ++a)
+          for (int c = 0; c < T::kCols / 64; ++c)
+            tma_load3(st + T::kA + w * T::kB + c * kBox, w ? &tb2 : &tb,
+                      full(s), n0 + c * 64, ks * 64, e);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kGConsumerRegs));
+  float acc[T::kNW][T::kCols / 2];
+  for (int ks = 0; ks < nk; ++ks) {
+    const int s = ks % T::kStages;
+    mbar_wait(full(s), (ks / T::kStages) & 1);
+    const uint32_t st = base + s * T::kStage;
+    const uint64_t da = sw128_desc(st + role * 64 * 128, 16, 1024);
+    const uint64_t db = sw128_desc(st + T::kA, kBox, 1024);
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-          ldsm_x4(af[a][mi], sa + a * kATile +
-                                 (wm * 32 + mi * 16 + (lane & 15)) * kPAP +
-                                 kk + (lane >> 4) * 8);
+    for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+    wg_fence();
 #pragma unroll
-      for (int b = 0; b < kNB; ++b)
+    for (int kk = 0; kk < 4; ++kk)       // 16 k a step: 32 bytes along A's
+#pragma unroll                           // rows, 16 rows (2 KB) of B's
+      for (int w = 0; w < T::kNW; ++w)   // boxes; descriptors count 16 B
+        Wgmma<T::kCols>::template ss<0, 1>(
+            acc[w], da + kk * 2, db + w * (T::kB >> 4) + kk * 128,
+            (ks | kk) != 0);
+    wg_commit();
+    wg_wait<1>();                                   // slab ks - 1 is done
 #pragma unroll
-        for (int np = 0; np < NI / 2; ++np) {
-          uint32_t bf[4];                       // n blocks 2np, 2np + 1
-          ldsm_x4_t(bf, sb + b * kBTile + (kk + (lane & 15)) * kPBP +
-                            wn * 32 + np * 16 + (lane >> 4) * 8);
+    for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+    if (ks > 0) mbar_arrive(freed((ks - 1) % T::kStages));
+  }
+  wg_wait<0>();
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
+  for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+
+  // accumulator: rows g and g + 8 of the warp's 16, columns 2t, 2t + 1
+  // of each 8
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r0 = m0 + role * 64 + warp * 16 + (lane >> 2);
+  __nv_bfloat16* oe = out + (size_t)e * M * N;
 #pragma unroll
-            for (int a = 0; a < kNA; ++a) {
-              mma_bf16(acc[b][mi][2 * np], af[a][mi], bf[0], bf[1]);
-              mma_bf16(acc[b][mi][2 * np + 1], af[a][mi], bf[2], bf[3]);
-            }
-        }
+  for (int j = 0; j < T::kCols / 8; ++j) {
+    const int c = n0 + j * 8 + 2 * (lane & 3);   // N % 8 == 0: c + 1 is
+    if (c >= N) continue;                        // in when c is
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + hr * 8;
+      if (r >= M) continue;
+      float v0 = acc[0][4 * j + 2 * hr], v1 = acc[0][4 * j + 2 * hr + 1];
+      if (GATED) {
+        v0 = act_f(v0, act) * acc[T::kNW - 1][4 * j + 2 * hr];
+        v1 = act_f(v1, act) * acc[T::kNW - 1][4 * j + 2 * hr + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(oe + (size_t)r * N + c) =
+          __floats2bfloat162_rn(v0, v1);
     }
   }
-  cp_async_wait<0>();
-
-  // accumulator fragment: rows g and g + 8, columns 2t and 2t + 1
-  const size_t o_off = (size_t)e * M * N;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = m0 + wm * 32 + mi * 16 + g + hr * 8;
-        const int c = n0 + wn * 32 + ni * 8 + 2 * t;  // N % 8 == 0: c + 1
-        if (r >= M || c >= N) continue;                // is in when c is
-        const size_t i = o_off + (size_t)r * N + c;
-        const float p0 = acc[0][mi][ni][2 * hr];
-        const float p1 = acc[0][mi][ni][2 * hr + 1];
-        if (GATED) {
-          const float v0 = act_f(p0, act) * acc[kNB - 1][mi][ni][2 * hr];
-          const float v1 = act_f(p1, act) * acc[kNB - 1][mi][ni][2 * hr + 1];
-          const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(out + i) = h;
-          store2(out_lo + i, v0 - __low2float(h), v1 - __high2float(h));
-        } else {
-          store2(out + i, p0, p1);
-        }
-      }
 }
 
 template <bool GATED>
-int launch_pipe(const __nv_bfloat16* A, const __nv_bfloat16* A2,
-                const __nv_bfloat16* B, const __nv_bfloat16* B2,
-                __nv_bfloat16* out, __nv_bfloat16* out_lo, int E, int M,
-                int N, int K, int act, cudaStream_t stream) {
-  constexpr int kNA = GATED ? 1 : 2, kNB = GATED ? 2 : 1;
-  const size_t smem = sizeof(__nv_bfloat16) * kPStages *
-                      (kNA * kPM * kPAP + kNB * kPK * kPBP);
-  auto kern = gmm_pipe_kernel<GATED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM, E);
-  kern<<<grid, kPThreads, smem, stream>>>(A, A2, B, B2, out, out_lo, M, N,
-                                          K, act);
+int launch_wgmma(const void* a, const void* b, const void* b2, void* out,
+                 int E, int M, int N, int K, int act, cudaStream_t stream) {
+  using T = GTile<GATED>;
+  CUtensorMap ta, tb, tb2;
+  int err = make_map3(&ta, a, K, M, E, kGRows);
+  if (err == 0) err = make_map3(&tb, b, N, K, E, 64);
+  if (err == 0) err = make_map3(&tb2, GATED ? b2 : b, N, K, E, 64);
+  if (err != 0) return err;
+  auto kern = gmm_wgmma_kernel<GATED>;
+  const cudaError_t ce = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (ce != cudaSuccess) return (int)ce;
+  const dim3 grid((N + T::kCols - 1) / T::kCols, (M + kGRows - 1) / kGRows,
+                  E);
+  kern<<<grid, kGThreads, T::kSmem, stream>>>(ta, tb, tb2,
+                                              (__nv_bfloat16*)out, M, N, K,
+                                              act);
   return (int)cudaGetLastError();
 }
 
+// The "stream" path (decode). Bytes bound it: every weight byte is read
+// once, so the weights must stream at close to the card's bandwidth.
+// The operands are swapped: the weight tile is wgmma's 64-row A operand
+// (Wg / Wu / Wd read MN-major), and the bucket's C rows are the narrow
+// N side (8 to 64, C rounded up; rows past C are TMA's zeros). So
+// out^T (64 columns, N) = W^T (64, K) x^T (K, N). A block is one
+// consumer warpgroup and a producer warp; it owns a sequence of
+// (expert, 64-column) items, persistent over a grid that fills every SM
+// (two blocks an SM), so the producer loads the next item's slabs while
+// the consumers finish this one, and the ring (4 to 11 stages, 90 to
+// 102 KB) never drains between items.
+constexpr int kSThreads = 160;
+constexpr int kSBudget = 104 * 1024;   // bytes of the ring: two blocks an SM
+constexpr int kStreamMaxC = 64;
+
+template <bool GATED, int N>
+struct STile {
+  static constexpr int kNW = GATED ? 2 : 1;
+  static constexpr int kB = N * 128;                 // x or h: N rows
+  static constexpr int kStage = kNW * kBox + kB;
+  static constexpr int kStages =
+      kSBudget / kStage > 12 ? 12 : kSBudget / kStage;
+  static constexpr int kSmem = kStages * kStage + 16 * kStages + 1024;
+};
+
+// GATED: W / W2 = Wg / Wu (E, K, M), X = x (E, C, K), out = h (E, C, M)
+// = act(X W) o (X W2). Else W = Wd, X = h, out = y = X W. bf16 out.
+template <bool GATED, int N>
+__global__ void __launch_bounds__(kSThreads, 2)
+gmm_stream_kernel(const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap tw2,
+                  const __grid_constant__ CUtensorMap tx,
+                  __nv_bfloat16* __restrict__ out, int E, int C, int M,
+                  int K, int act) {
+  using T = STile<GATED, N>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + T::kStages * T::kStage;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto freed = [&](int s) { return bars + 8 * (T::kStages + s); };
+  const int mt = (M + 63) / 64, items = E * mt, nk = (K + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(freed(s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {                         // the producer warp
+    if (threadIdx.x == 128) {
+      int it = 0;                                   // slabs so far
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int e = item / mt, m0 = (item % mt) * 64;
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int s = it % T::kStages;
+          if (it >= T::kStages) mbar_wait(freed(s), (it / T::kStages - 1) & 1);
+          const uint32_t st = base + s * T::kStage;
+          mbar_expect_tx(full(s), T::kStage);
+          tma_load3(st, &tw, full(s), m0, ks * 64, e);
+          if (GATED) tma_load3(st + kBox, &tw2, full(s), m0, ks * 64, e);
+          tma_load3(st + T::kNW * kBox, &tx, full(s), ks * 64, 0, e);
+        }
+      }
+    }
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[T::kNW][N / 2];
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, it += nk) {
+    const int e = item / mt, m0 = (item % mt) * 64;
+    for (int ks = 0; ks < nk; ++ks) {
+      const int s = (it + ks) % T::kStages;
+      mbar_wait(full(s), ((it + ks) / T::kStages) & 1);
+      const uint32_t st = base + s * T::kStage;
+      const uint64_t dw = sw128_desc(st, kBox, 1024);
+      const uint64_t dx = sw128_desc(st + T::kNW * kBox, 16, 1024);
+#pragma unroll
+      for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int w = 0; w < T::kNW; ++w)
+          Wgmma<N>::template ss<1, 0>(acc[w], dw + w * (kBox >> 4) + kk * 128,
+                                      dx + kk * 2, (ks | kk) != 0);
+      wg_commit();
+      wg_wait<1>();
+#pragma unroll
+      for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+      if (ks > 0) mbar_arrive(freed((it + ks - 1) % T::kStages));
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+    mbar_arrive(freed((it + nk - 1) % T::kStages));
+
+    // accumulator (transposed): output columns m0 + warp * 16 + g and
+    // + 8, bucket rows 2t, 2t + 1 of each 8
+    __nv_bfloat16* oe = out + (size_t)e * C * M;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + warp * 16 + (lane >> 2) + (q >> 1) * 8;
+        const int r = j * 8 + 2 * (lane & 3) + (q & 1);
+        if (m >= M || r >= C) continue;
+        float v = acc[0][4 * j + q];
+        if (GATED) v = act_f(v, act) * acc[T::kNW - 1][4 * j + q];
+        oe[(size_t)r * M + m] = __float2bfloat16_rn(v);
+      }
+  }
+}
+
+template <bool GATED, int N>
+int launch_stream(const void* w, const void* w2, const void* xin, void* out,
+                  int E, int C, int M, int K, int act, cudaStream_t stream) {
+  using T = STile<GATED, N>;
+  CUtensorMap tw, tw2, tx;
+  int err = make_map3(&tw, w, M, K, E, 64);
+  if (err == 0) err = make_map3(&tw2, GATED ? w2 : w, M, K, E, 64);
+  if (err == 0) err = make_map3(&tx, xin, K, C, E, N);
+  if (err != 0) return err;
+  auto kern = gmm_stream_kernel<GATED, N>;
+  cudaError_t ce = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (ce != cudaSuccess) return (int)ce;
+  static int resident = 0;                          // blocks the card holds
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    ce = cudaGetDevice(&dev);
+    if (ce == cudaSuccess)
+      ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (ce == cudaSuccess)
+      ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                         kSThreads, T::kSmem);
+    if (ce != cudaSuccess) return (int)ce;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int items = E * ((M + 63) / 64);
+  const int grid = items < resident ? items : resident;
+  kern<<<grid, kSThreads, T::kSmem, stream>>>(tw, tw2, tx,
+                                              (__nv_bfloat16*)out, E, C, M,
+                                              K, act);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int run_stream(const void* x, const void* wg, const void* wu, const void* wd,
+               void* h, void* y, int E, int C, int d, int F, int act,
+               cudaStream_t stream) {
+  const int err = launch_stream<true, N>(wg, wu, x, h, E, C, F, d, act,
+                                         stream);
+  if (err) return err;
+  return launch_stream<false, N>(wd, nullptr, h, y, E, C, d, F, act, stream);
+}
+
+// bf16 x and weights; h an (E, C, F) bf16 workspace
+int run_tma(bool stream_path, const void* x, const void* wg, const void* wu,
+            const void* wd, void* h, void* y, int E, int C, int d, int F,
+            int act, cudaStream_t stream) {
+  if (stream_path) {
+    if (C <= 8) return run_stream<8>(x, wg, wu, wd, h, y, E, C, d, F, act,
+                                     stream);
+    if (C <= 16) return run_stream<16>(x, wg, wu, wd, h, y, E, C, d, F, act,
+                                       stream);
+    if (C <= 32) return run_stream<32>(x, wg, wu, wd, h, y, E, C, d, F, act,
+                                       stream);
+    return run_stream<64>(x, wg, wu, wd, h, y, E, C, d, F, act, stream);
+  }
+  const int err = launch_wgmma<true>(x, wg, wu, h, E, C, F, d, act, stream);
+  if (err) return err;
+  return launch_wgmma<false>(h, wd, nullptr, y, E, C, d, F, act, stream);
+}
+
+// the "f32" and "mma" paths; h an (E, C, F) f32 workspace
 template <typename TW>
-int run(const void* x, const void* wg, const void* wu, const void* wd,
-        float* h, void* y, bool x_f32, int E, int C, int d, int F, int act,
-        cudaStream_t stream) {
+int run_cores(const void* x, const void* wg, const void* wu, const void* wd,
+              float* h, void* y, bool x_f32, int E, int C, int d, int F,
+              int act, cudaStream_t stream) {
   const TW* g = (const TW*)wg;
   const TW* u = (const TW*)wu;
   const TW* dn = (const TW*)wd;
@@ -598,21 +749,6 @@ int run(const void* x, const void* wg, const void* wu, const void* wd,
   }
   const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
   __nv_bfloat16* yb = (__nv_bfloat16*)y;
-  const auto a16 = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (!IsF32<TW>::value && C > 16 && d % 8 == 0 && F % 8 == 0 && a16(x) &&
-      a16(wg) && a16(wu) && a16(wd) && a16(h) && a16(y)) {
-    // h's f32 workspace holds the bf16 high parts, then the remainders
-    __nv_bfloat16* hh = reinterpret_cast<__nv_bfloat16*>(h);
-    __nv_bfloat16* hl = hh + (size_t)E * C * F;
-    const __nv_bfloat16* gb = (const __nv_bfloat16*)wg;
-    err = launch_pipe<true>(xb, nullptr, gb, (const __nv_bfloat16*)wu, hh,
-                            hl, E, C, F, d, act, stream);
-    if (err) return err;
-    return launch_pipe<false>(hh, hl, (const __nv_bfloat16*)wd, nullptr, yb,
-                              nullptr, E, C, d, F, act, stream);
-  }
   if (C <= 16) {
     err = launch_mma<16, true>(xb, g, u, h, E, C, F, d, act, stream);
     if (err) return err;
@@ -625,21 +761,38 @@ int run(const void* x, const void* wg, const void* wu, const void* wd,
                                E, C, d, F, act, stream);
 }
 
+bool a16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 // x (E, C, d), wg / wu (E, d, F), wd (E, F, d), all contiguous; h an
-// (E, C, F) f32 workspace; y (E, C, d) in x's dtype. x_dtype / w_dtype:
-// 0 float32, 1 bfloat16 (the three weights alike). act: 0 silu, 1 gelu
-// (tanh approximation).
+// (E, C, F) workspace, f32 on paths 0-1 and bf16 on paths 2-3; y
+// (E, C, d) in x's dtype. x_dtype / w_dtype: 0 float32, 1 bfloat16 (the
+// three weights alike). act: 0 silu, 1 gelu (tanh approximation).
+// path, as the wrapper's _path chose it: 0 "f32" (x f32), 1 "mma" (x
+// bf16), 2 "stream" and 3 "wgmma" (x and weights bf16, d and F
+// multiples of 8, every pointer 16-byte aligned; stream: C <= 64). A
+// path that does not take these inputs returns cudaErrorInvalidValue
+// and launches nothing.
 extern "C" int moe_gmm(const void* x, const void* wg, const void* wu,
                        const void* wd, void* h, void* y, int x_dtype,
-                       int w_dtype, int E, int C, int d, int F, int act,
-                       void* stream) {
-  if (E > 65535 || x_dtype < 0 || x_dtype > 1 || w_dtype < 0 || w_dtype > 1)
+                       int w_dtype, int path, int E, int C, int d, int F,
+                       int act, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (E < 1 || E > 65535 || C < 1 || d < 1 || F < 1 || x_dtype < 0 ||
+      x_dtype > 1 || w_dtype < 0 || w_dtype > 1)
     return (int)cudaErrorInvalidValue;
-  if (w_dtype == 0)
-    return run<float>(x, wg, wu, wd, (float*)h, y, x_dtype == 0, E, C, d, F,
-                      act, (cudaStream_t)stream);
-  return run<__nv_bfloat16>(x, wg, wu, wd, (float*)h, y, x_dtype == 0, E, C,
-                            d, F, act, (cudaStream_t)stream);
+  if (path == 0 || path == 1) {
+    if (x_dtype != (path == 0 ? 0 : 1)) return (int)cudaErrorInvalidValue;
+    if (w_dtype == 0)
+      return run_cores<float>(x, wg, wu, wd, (float*)h, y, path == 0, E, C,
+                              d, F, act, st);
+    return run_cores<__nv_bfloat16>(x, wg, wu, wd, (float*)h, y, path == 0,
+                                    E, C, d, F, act, st);
+  }
+  if ((path == 2 || path == 3) && x_dtype == 1 && w_dtype == 1 &&
+      d % 8 == 0 && F % 8 == 0 && a16(x) && a16(wg) && a16(wu) && a16(wd) &&
+      a16(h) && a16(y) && (path == 3 || C <= kStreamMaxC))
+    return run_tma(path == 2, x, wg, wu, wd, h, y, E, C, d, F, act, st);
+  return (int)cudaErrorInvalidValue;
 }

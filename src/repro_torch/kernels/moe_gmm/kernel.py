@@ -7,11 +7,13 @@ approximation, as ``jax.nn.gelu``). x is float32 or bfloat16; the three
 weights share float32 or bfloat16 (the reference passes the params as
 they are, f32 by default, beside bf16 activations).
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-(``csrc/moe_gmm.cu``: a gate/up kernel into an f32 workspace, then a
-down kernel) or raises; on a CPU tensor it runs the plain version
-beside it, the reference's ``moe_gmm/ref.py``. ``LAUNCHES`` counts
-wrapper calls that launched the kernel pair.
+On a CUDA tensor the wrapper launches the hand-written Hopper kernels
+(``csrc/moe_gmm.cu``: a gate/up kernel into a workspace, then a down
+kernel) or raises; ``_path`` picks the pair from the dtypes, C, d, F
+and the alignment alone. On a CPU tensor it runs the plain version
+beside it, the reference's ``moe_gmm/ref.py``. ``LAUNCHES["moe_gmm"]``
+counts wrapper calls that launched a kernel pair,
+``LAUNCHES["moe_gmm_<path>"]`` those of each path.
 """
 from __future__ import annotations
 
@@ -26,10 +28,17 @@ ACTS = {"silu": 0, "gelu": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "moe_gmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "moe_gmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# the C entry's path codes
+PATHS = {"f32": 0, "mma": 1, "stream": 2, "wgmma": 3}
+# The largest C that takes the "stream" path (bf16, decode-sized
+# buckets); above it "wgmma". Measured on an H100 at E 64, d 2048,
+# F 1408 (PERF.md, the threshold sweep of chip_smoke.py); the stream
+# kernel takes C up to 64.
+STREAM_MAX_C = 64
 
-LAUNCHES = {"moe_gmm": 0}
+LAUNCHES = {"moe_gmm": 0, **{f"moe_gmm_{p}": 0 for p in PATHS}}
 
 
 def _lib():
@@ -78,22 +87,53 @@ def _check(x, wg, wu, wd, act):
         raise ValueError(f"moe_gmm: unsupported device {x.device}")
 
 
+def _path(x_dtype, w_dtype, C: int, d: int, F: int, aligned: bool) -> str:
+    """The kernel pair a CUDA call runs. "f32" (the fp32 cores): float32
+    x. "stream" (C <= STREAM_MAX_C) or "wgmma" (tensor cores fed by
+    TMA): bf16 x and weights with d and F multiples of 8 and ``aligned``
+    tensors. "mma" (tensor cores, operands staged through registers):
+    the other bf16 x, f32 weights included."""
+    if x_dtype == torch.float32:
+        return "f32"
+    if w_dtype == torch.bfloat16 and aligned and d % 8 == 0 and F % 8 == 0:
+        return "stream" if C <= STREAM_MAX_C else "wgmma"
+    return "mma"
+
+
+def _aligned(tensors) -> bool:
+    """What TMA asks of a contiguous tensor's base: 16 bytes."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def moe_gmm(x, wg, wu, wd, *, act: str = "silu"):
     """Kernel wrapper of ``moe_gmm_plain``."""
     _check(x, wg, wu, wd, act)
     if x.device.type == "cpu":
         return moe_gmm_plain(x, wg, wu, wd, act=act)
+    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
+    E, C, d = x.shape
+    path = _path(x.dtype, wg.dtype, C, d, wg.shape[-1],
+                 _aligned((x, wg, wu, wd)))
+    return _launch(x, wg, wu, wd, act, path)
+
+
+def _launch(x, wg, wu, wd, act, path):
+    """One launch of the kernel pair of ``path`` on contiguous CUDA
+    tensors (``moe_gmm`` picks the path; the threshold sweep of
+    chip_smoke.py times the stream and wgmma pairs side by side)."""
     E, C, d = x.shape
     Fd = wg.shape[-1]
     if E > 65535:
         raise ValueError(f"moe_gmm: {E} experts > 65535 (the grid's z)")
-    x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))
     y = torch.empty_like(x)
     if y.numel():
-        h = torch.empty((E, C, Fd), dtype=torch.float32, device=x.device)
+        ws = torch.bfloat16 if path in ("stream", "wgmma") else torch.float32
+        h = torch.empty((E, C, Fd), dtype=ws, device=x.device)
         _build.check(_lib().moe_gmm(
             x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
             h.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], _DTYPES[wg.dtype],
-            E, C, d, Fd, ACTS[act], _build.stream_ptr(x)), "moe_gmm")
+            PATHS[path], E, C, d, Fd, ACTS[act], _build.stream_ptr(x)),
+            f"moe_gmm ({path})")
         LAUNCHES["moe_gmm"] += 1
+        LAUNCHES[f"moe_gmm_{path}"] += 1
     return y

@@ -173,26 +173,25 @@ def test_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, dtype):
     torch.testing.assert_close(f.float(), f_p.float(), atol=atol, rtol=rtol)
 
 
-GMM_CASES = [  # (E, C, d, F, act, x dtype, weight dtype, scale)
-    (4, 64, 128, 256, "silu", "float32", "float32", "ref"),
-    (2, 128, 64, 512, "gelu", "float32", "float32", "ref"),
-    (8, 32, 256, 128, "silu", "float32", "float32", "ref"),
-    (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref"),
-    (3, 40, 96, 192, "gelu", "float32", "float32", "ref"),  # non-128
-    (3, 40, 96, 192, "gelu", "bfloat16", "float32", "ref"),  # mixed
-    (2, 9, 33, 20, "silu", "float32", "float32", "ref"),    # odd d
-    (2, 9, 33, 20, "silu", "bfloat16", "bfloat16", "ref"),
-    (4, 24, 64, 48, "silu", "float32", "bfloat16", "ref"),  # bf16 params,
-                                                            # f32 compute
-    (3, 40, 96, 192, "gelu", "bfloat16", "bfloat16", "ref"),  # cp.async
-    (2, 130, 72, 40, "silu", "bfloat16", "bfloat16", "ref"),  # ragged
+GMM_CASES = [  # (E, C, d, F, act, x dtype, weight dtype, scale, path)
+    (4, 64, 128, 256, "silu", "float32", "float32", "ref", "f32"),
+    (2, 128, 64, 512, "gelu", "float32", "float32", "ref", "f32"),
+    (8, 32, 256, 128, "silu", "float32", "float32", "ref", "f32"),
+    (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref", "stream"),
+    (3, 40, 96, 192, "gelu", "float32", "float32", "ref", "f32"),  # non-128
+    (3, 40, 96, 192, "gelu", "bfloat16", "float32", "ref", "mma"),  # mixed
+    (2, 9, 33, 20, "silu", "float32", "float32", "ref", "f32"),    # odd d
+    (2, 9, 33, 20, "silu", "bfloat16", "bfloat16", "ref", "mma"),
+    (4, 24, 64, 48, "silu", "float32", "bfloat16", "ref", "f32"),  # bf16
+                                                    # params, f32 compute
+    (3, 40, 96, 192, "gelu", "bfloat16", "bfloat16", "ref", "stream"),
+    (2, 130, 72, 40, "silu", "bfloat16", "bfloat16", "ref", "wgmma"),  # ragged
                                                     # tiles, partial slab
-    (2, 24, 33, 20, "silu", "bfloat16", "bfloat16", "ref"),   # d % 8 != 0:
-                                                    # register staging
-    (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),  # decode
-    (64, 8, 2048, 1408, "silu", "bfloat16", "float32", "model"),
-    (8, 200, 2048, 1408, "silu", "bfloat16", "bfloat16", "model"),
-    (8, 200, 2048, 1408, "silu", "bfloat16", "float32", "model"),
+    (2, 24, 33, 20, "silu", "bfloat16", "bfloat16", "ref", "mma"),  # d % 8
+    (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model", "stream"),
+    (64, 8, 2048, 1408, "silu", "bfloat16", "float32", "model", "mma"),
+    (8, 200, 2048, 1408, "silu", "bfloat16", "bfloat16", "model", "wgmma"),
+    (8, 200, 2048, 1408, "silu", "bfloat16", "float32", "model", "mma"),
 ]
 
 
@@ -212,18 +211,59 @@ def gmm_inputs(E, C, d, F, xdt, wdt, scale, gen):
                                          for w in (wg, wu, wd))
 
 
+def _gmm_matches_plain(x, wg, wu, wd, act, path):
+    """One launch, on ``path`` (by the per-path count), within the
+    output dtype's tolerance of the plain version."""
+    n = dict(gmm.LAUNCHES)
+    y = gmm.moe_gmm(x, wg, wu, wd, act=act)
+    torch.cuda.synchronize()
+    assert gmm.LAUNCHES["moe_gmm"] == n["moe_gmm"] + 1
+    assert {p: gmm.LAUNCHES[f"moe_gmm_{p}"] - n[f"moe_gmm_{p}"]
+            for p in gmm.PATHS} == {p: int(p == path) for p in gmm.PATHS}
+    assert y.dtype == x.dtype and y.shape == x.shape
+    plain = gmm.moe_gmm_plain(x, wg, wu, wd, act=act)
+    atol = 1e-5 if x.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), plain.float(), atol=atol, rtol=0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,F,act,xdt,wdt,scale", GMM_CASES)
+@pytest.mark.parametrize("E,C,d,F,act,xdt,wdt,scale,path", GMM_CASES)
 def test_moe_gmm_kernel_matches_plain(card, E, C, d, F, act, xdt, wdt,
-                                      scale):
+                                      scale, path):
     g = torch.Generator().manual_seed(0)
     x, wg, wu, wd = (t.to(card) for t in gmm_inputs(E, C, d, F, xdt, wdt,
                                                       scale, g))
-    n = gmm.LAUNCHES["moe_gmm"]
-    y = gmm.moe_gmm(x, wg, wu, wd, act=act)
-    torch.cuda.synchronize()
-    assert gmm.LAUNCHES["moe_gmm"] == n + 1
-    assert y.dtype == x.dtype and y.shape == x.shape
-    plain = gmm.moe_gmm_plain(x, wg, wu, wd, act=act)
-    atol = 1e-5 if xdt == "float32" else 2e-2
-    torch.testing.assert_close(y.float(), plain.float(), atol=atol, rtol=0)
+    _gmm_matches_plain(x, wg, wu, wd, act, path)
+
+
+# bf16 x and weights at the edges of the stream and wgmma paths:
+# (E, C, d, F, act, shift, path); C is an offset from the threshold when
+# given as a string. shift: x one element past a 16-byte boundary.
+_T = "threshold"
+GMM_PATH_CASES = [
+    (4, _T, 512, 1408, "silu", False, "stream"),
+    (4, _T + "+1", 512, 1408, "silu", False, "wgmma"),
+    (2, 130, 256, 200, "gelu", False, "wgmma"),       # ragged rows and F
+    (2, 960, 2048, 1408, "silu", False, "wgmma"),     # the prefill's C
+    (2, 100, 72, 1408, "silu", False, "wgmma"),       # a partial k slab
+    (1, 8, 2048, 1408, "gelu", False, "stream"),      # E 1
+    (1, 300, 128, 96, "gelu", False, "wgmma"),
+    (2, 5, 64, 64, "silu", False, "stream"),          # C < 8
+    (3, 17, 192, 136, "silu", False, "stream"),       # F % 64 != 0
+    (2, 16, 256, 128, "silu", True, "mma"),           # misaligned view
+    (2, 200, 256, 128, "silu", True, "mma"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,F,act,shift,path", GMM_PATH_CASES)
+def test_moe_gmm_paths_match_plain(card, E, C, d, F, act, shift, path):
+    if isinstance(C, str):
+        C = gmm.STREAM_MAX_C + (1 if C.endswith("+1") else 0)
+    g = torch.Generator().manual_seed(2)
+    x, wg, wu, wd = (t.to(card) for t in gmm_inputs(
+        E, C, d, F, "bfloat16", "bfloat16", "model", g))
+    if shift:
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(E, C, d)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    _gmm_matches_plain(x, wg, wu, wd, act, path)

@@ -87,3 +87,51 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         wu = wu.to(torch.float16)
     with pytest.raises(ValueError, match="moe_gmm"):
         gmm.moe_gmm(x, wg, wu, wd, act="relu" if bad == "act" else "silu")
+
+
+# A CUDA call's kernel pair, from the dtypes, C, d, F and the alignment
+# alone: f32 x on the fp32 cores; bf16 x and weights that TMA can take
+# on "stream" up to the threshold and "wgmma" above it; the rest of
+# bf16 x (f32 weights, d or F not a multiple of 8, a base off 16 bytes)
+# on "mma".
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("above", [False, True])
+@pytest.mark.parametrize("d,F", [(2048, 1408), (2044, 1408), (2048, 1404),
+                                 (96, 192)])
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("float32", "bfloat16"),
+                                     ("bfloat16", "float32"),
+                                     ("bfloat16", "bfloat16")])
+def test_path_choice(xdt, wdt, d, F, above, aligned):
+    C = gmm.STREAM_MAX_C + int(above)
+    if xdt == "float32":
+        want = "f32"
+    elif wdt == "bfloat16" and aligned and d % 8 == 0 and F % 8 == 0:
+        want = "wgmma" if above else "stream"
+    else:
+        want = "mma"
+    assert gmm._path(_TORCH[xdt], _TORCH[wdt], C, d, F, aligned) == want
+
+
+def test_serving_shapes_take_the_tma_paths():
+    """deepseek-v2-lite's buckets: C 960 a 4 x 2048 prefill, 8 a decode
+    step (d 2048, F 1408, bf16 activations and params)."""
+    bf = torch.bfloat16
+    assert gmm._path(bf, bf, 960, 2048, 1408, True) == "wgmma"
+    assert gmm._path(bf, bf, 8, 2048, 1408, True) == "stream"
+    assert gmm._path(bf, torch.float32, 960, 2048, 1408, True) == "mma"
+
+
+@pytest.mark.parametrize("view,aligned", [
+    ("whole", True), ("expert_slice", True), ("shift", False)])
+def test_alignment_of_views(view, aligned):
+    """A contiguous bucket tensor and a slice of whole experts start on
+    16 bytes; a view one element past a boundary does not (the wrapper
+    keeps it: it is contiguous)."""
+    x = torch.zeros(4, 8, 64, dtype=torch.bfloat16)
+    if view == "expert_slice":
+        x = x[1:]
+    elif view == "shift":
+        x = x.reshape(-1)[1:1 + 3 * 8 * 64].view(3, 8, 64)
+    assert x.is_contiguous()
+    assert gmm._aligned((x,)) == aligned
