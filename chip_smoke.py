@@ -32,8 +32,10 @@ non-zero exit:
             bf16 case on the wgmma path; and bf16 that TMA cannot take
             on the fp32-core path: tensors off a 16-byte boundary at
             both serving shapes, and D or Dv not a multiple of 8; ssd,
-            f32 and bf16: the serving shape with a nonzero initial
-            state, and p = 64, n = 128; moe_gmm, each case on its
+            f32 and bf16, each bf16 case on its asserted path: the
+            serving shape with a nonzero initial state, p = 64, n = 128,
+            and 128 chunks on 16 chains with no initial state (wgmma),
+            and p, n not multiples of 8 (mma); moe_gmm, each case on its
             asserted path: deepseek's prefill (wgmma) and decode
             (stream) shapes in bf16, bf16 x with f32 weights at the
             prefill shape, d not a multiple of 8, and x off a 16-byte
@@ -42,15 +44,18 @@ non-zero exit:
             then cold / warm device time, plain time, bound and, for
             flash, the path, the achieved TFLOP/s and the time of
             PyTorch's SDPA at both serving shapes (a yardstick only; the
-            port never calls it); for moe_gmm at both serving shapes,
-            three bf16 ``torch.bmm`` of the same shapes (a yardstick
-            only), and the stream / wgmma threshold sweep: both paths'
-            cold time at C 8 to 256 (E 64, d 2048, F 1408).
+            port never calls it); for ssd, the path, the look-back
+            scratch's bytes, the device time of the fill kernel that
+            zeroes it and the kernels one call runs; for moe_gmm at both
+            serving shapes, three bf16 ``torch.bmm`` of the same shapes
+            (a yardstick only), and the stream / wgmma threshold sweep:
+            both paths' cold time at C 8 to 256 (E 64, d 2048, F 1408).
 7. serve    zamba2-1.2b at full width (38 layers, d_model 2048, vocab
             32000) in bf16 with attn_impl="pallas", through
             ``repro_torch.launch.serve.generate``: batch 4, prompt 2048,
             32 greedy tokens; flash must launch exactly 6 times, all on
-            the wgmma path, and the SSD scan 32 times (one prefill).
+            the wgmma path, and the SSD scan 32 times (one prefill), all
+            on the wgmma path.
             Prints prefill seconds, decode tokens/s, peak memory and the
             prefill and decode profiles.
 8. serve_parity  zamba2 at 6 layers (both block kinds), d_model 256, in
@@ -138,9 +143,10 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def _profile(fn, iters: int) -> dict:
+def _profile(fn, iters: int, counts: dict | None = None) -> dict:
     """{kernel name: device µs summed over ``iters`` calls of fn}, from
-    the profiler's CUDA activity."""
+    the profiler's CUDA activity; ``counts``, if given, receives
+    {kernel name: launches}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -149,8 +155,11 @@ def _profile(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if counts is not None:
+        counts.clear()
+        counts.update({e.key: e.count for e in events})
+    return {e.key: e.self_device_time_total for e in events}
 
 
 _SPIN = {}
@@ -454,9 +463,12 @@ FA_FP32_CASES = [
     ((1, 300, 4, 2, 36, 36, True, 0), False),       # D % 8 != 0
     ((1, 300, 2, 1, 200, 164, True, 0), False),     # Dv % 8 != 0
 ]
-SSD_CASES = [  # (b, s, h, p, n, chunk)
-    (4, 2048, 64, 64, 64, 128),         # zamba2 SSM layers, prefill
-    (2, 1024, 8, 64, 128, 128),         # mamba2's p, n
+SSD_CASES = [  # (b, s, h, p, n, chunk, initial state, bf16 path)
+    (4, 2048, 64, 64, 64, 128, True, "wgmma"),   # zamba2 SSM layers, prefill
+    (2, 1024, 8, 64, 128, 128, True, "wgmma"),   # mamba2's p, n
+    # 128 chunks on 16 chains: blocks wait on the chunk before theirs
+    (2, 8192, 8, 64, 64, 64, False, "wgmma"),
+    (1, 192, 2, 24, 20, 64, True, "mma"),        # n, p % 8 != 0: no TMA
 ]
 # (E, C, d, F, act, x dtype, weight dtype, input scales, path, shift).
 # C is moe.py's capacity at factor 1.25, top-6 of 64 experts: 960 for a
@@ -503,7 +515,7 @@ def ssd_inputs(torch, case, dtype, gen):
     """The reference kernel test's distributions: x, B, C normal, dt =
     softplus(normal), A = -exp(normal), initial state normal * 0.1."""
     import torch.nn.functional as F
-    b, s, h, p, n, _ = case
+    b, s, h, p, n = case[:5]
 
     def r(*shape):
         return torch.randn(*shape, generator=gen)
@@ -579,6 +591,12 @@ def gmm_paths() -> dict:
     return {p: gmm.LAUNCHES[f"moe_gmm_{p}"] for p in gmm.PATHS}
 
 
+def ssd_paths() -> dict:
+    """SSD scan launches so far, by kernel path."""
+    from repro_torch.kernels.ssd_scan import kernel as ss
+    return {p: ss.LAUNCHES[f"ssd_scan_{p}"] for p in ss.PATHS}
+
+
 def path_taken(paths, before: dict) -> str:
     """The one path of ``paths()`` launched since ``before``."""
     now = paths()
@@ -627,12 +645,19 @@ def check_lm_kernels(torch, gen):
         worst["flash_attention"] = max(worst["flash_attention"], err)
         del q, k, v, out, ref
     for case in SSD_CASES:
-        chunk = case[5]
+        chunk, with_init = case[5], case[6]
         for name, dt in dtypes.items():
             x, dtt, A, B, C, init = ssd_inputs(torch, case, dt, gen)
+            init = init if with_init else None
+            before = ssd_paths()
             y, f = ss.ssd_scan(x, dtt, A, B, C, chunk=chunk,
                                initial_state=init)
             torch.cuda.synchronize()
+            path = path_taken(ssd_paths, before)
+            want = "f32" if name == "float32" else case[7]
+            if path != want:
+                fail(f"ssd_scan {case} {name}: ran the {path} path, want "
+                     f"{want}")
             yp, fp = ss.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk,
                                        initial_state=init)
             err = max(float((y.float() - yp.float()).abs().max()),
@@ -640,7 +665,8 @@ def check_lm_kernels(torch, gen):
             ex = max(excess(y, yp, *SSD_TOL[name]),
                      excess(f, fp, *SSD_TOL[name]))
             emit("lm_kernel_check", name="ssd_scan", case=case, dtype=name,
-                 max_abs_err=err, excess_over_tol=ex, tol=SSD_TOL[name])
+                 path=path, max_abs_err=err, excess_over_tol=ex,
+                 tol=SSD_TOL[name])
             if not ex <= 0:
                 fail(f"ssd_scan {case} {name}: outside {SSD_TOL[name]} "
                      f"by {ex} (max abs err {err})")
@@ -757,26 +783,48 @@ def phase_lm_kernels(torch):
 
     sc = SSD_CASES[0]
     x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, torch.bfloat16, gen)
-    b_, s_, h_, p_, n_, l_ = sc
+    b_, s_, h_, p_, n_, l_ = sc[:6]
     nc = s_ // l_
     ssd_bytes = (2 * x.numel() * 2 + dtt.numel() * 4 + A.numel() * 4
                  + 2 * Bm.numel() * 2 + 2 * init.numel() * 2)
     ssd_ops_n = (b_ * nc * 2 * l_ * l_ * n_
                  + b_ * h_ * nc * (2 * (l_ * (l_ + 1) // 2) * p_
                                    + 2 * l_ * n_ * p_ + 2 * l_ * p_ * n_))
+    def ssd_row():
+        def kern():
+            return ss.ssd_scan(x, dtt, A, Bm, Cm, chunk=l_,
+                               initial_state=init)
+        before = ssd_paths()
+        kern()
+        torch.cuda.synchronize()
+        path = path_taken(ssd_paths, before)
+        if path != sc[7]:
+            fail(f"ssd_scan row: ran the {path} path, want {sc[7]}")
+        row, extra = timed_row(
+            kern,
+            lambda: ss.ssd_scan_plain(x, dtt, A, Bm, Cm, chunk=l_,
+                                      initial_state=init),
+            None, list(sc[:6]), bound(ssd_bytes, ssd_ops_n, BF16_OPS_PER_S),
+            ssd_ops_n, worst["ssd_scan"])
+        extra["path"] = path
+        words = ss.lookback_scratch(b_, h_, p_, n_)
+        extra["scratch_bytes"] = 8 * words
+        # the wrapper zeroes the scratch with torch.zeros, a fill kernel
+        # of its own that the row's ms includes: its cold time alone, and
+        # every kernel of one call with its device µs (profiler)
+        extra["scratch_fill_ms"] = min(device_ms(
+            lambda: torch.zeros(words, dtype=torch.int64, device="cuda"),
+            True, 5) for _ in range(2))
+        extra["one_call_kernels_us"] = _profile(kern, 1)
+        return row, extra
+
     makers = {
         "flash_attention": lambda: flash_row(FA_CASES[0], torch.bfloat16),
         "flash_attention_mla": lambda: flash_row(FA_CASES[1],
                                                  torch.bfloat16),
         "flash_attention_mla_f32": lambda: flash_row(
             FA_CASES[1], torch.float32, lib=False),
-        "ssd_scan": lambda: timed_row(
-            lambda: ss.ssd_scan(x, dtt, A, Bm, Cm, chunk=l_,
-                                initial_state=init),
-            lambda: ss.ssd_scan_plain(x, dtt, A, Bm, Cm, chunk=l_,
-                                      initial_state=init),
-            None, list(sc), bound(ssd_bytes, ssd_ops_n, BF16_OPS_PER_S),
-            ssd_ops_n, worst["ssd_scan"]),
+        "ssd_scan": ssd_row,
     }
     # every moe_gmm case; at the reference's small shapes the time is
     # mostly launch overhead
@@ -798,15 +846,19 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 GROUPS = (("flash_attention", ("flash_fwd",)), ("ssd_scan", ("ssd_scan",)),
           ("moe_gmm", ("::gmm_",)),
           ("gemm", ("gemm", "cutlass", "xmma", "nvjet")))
+# PyTorch's fill kernel for int64 (torch.zeros of the SSD look-back
+# scratch)
+INT64_FILL = "FillFunctor<long>"
 
 
-def _device_times(torch, fn) -> dict:
-    """{kernel name: device µs} of one call of fn. The profiler now and
-    then reports nothing for a session: up to three sessions."""
+def _device_times(torch, fn, counts: dict | None = None) -> dict:
+    """{kernel name: device µs} of one call of fn (``counts``: as in
+    _profile). The profiler now and then reports nothing for a session:
+    up to three sessions."""
     times = {}
     for _ in range(3):
         with torch.no_grad():
-            times = _profile(fn, 1)
+            times = _profile(fn, 1, counts)
         if times:
             break
     return times
@@ -825,14 +877,27 @@ def _by_group(times: dict) -> dict:
     return groups
 
 
-def prefill_breakdown(times: dict, wall_s: float) -> dict:
-    """Device time of one prefill by kernel group (``times``, from
-    _device_times), beside the host-clock time of a prefill;
-    ``kernels_seen`` says whether a profiler session reported."""
+def prefill_breakdown(times: dict, counts: dict, wall_s: float,
+                      ssd_launches: int) -> dict:
+    """Device time of one prefill by kernel group (``times`` and
+    ``counts``, from _device_times), beside the host-clock time of a
+    prefill; ``kernels_seen`` says whether a profiler session reported.
+    The SSD scan's scratch is zeroed by PyTorch's int64 fill kernel,
+    which the name groups count as elementwise: the int64 fills are
+    given apart, and where there are as many as the prefill's SSD
+    launches (``ssd_launches``), they are the scan's and are added to
+    its group in ``ssd_scan_with_fill_ms``."""
     groups = _by_group(times)
     busy_ms = sum(groups.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+    fills = [k for k in times if INT64_FILL in k]
+    fill = {"launches": sum(counts.get(k, 0) for k in fills),
+            "ms": sum(times[k] for k in fills) / 1e3}
+    with_fill = (groups["ssd_scan"] + fill["ms"]
+                 if ssd_launches and fill["launches"] == ssd_launches
+                 else None)
     return {"device_ms_by_group": groups, "device_busy_ms": busy_ms,
+            "int64_fills": fill, "ssd_scan_with_fill_ms": with_fill,
             "kernels_seen": len(times), "wall_ms": wall_s * 1e3,
             "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
@@ -922,8 +987,10 @@ def serve_full(torch, dev, cfg, tag, per_prefill, per_generate,
         fail(f"{tag}: non-finite prefill logits")
     del logits
     pre_fn = lambda: tf.prefill(cfg, params, tokens, prompt + steps)
-    pre_times = _device_times(torch, pre_fn)
-    breakdown = prefill_breakdown(pre_times, prefill_s)
+    pre_kernel_counts = {}
+    pre_times = _device_times(torch, pre_fn, pre_kernel_counts)
+    breakdown = prefill_breakdown(pre_times, pre_kernel_counts, prefill_s,
+                                  pre_counts.get("ssd_scan_wgmma", 0))
     decode = decode_breakdown(
         torch, lambda: generate(cfg, params, tokens, steps=steps),
         pre_times, prefill_s, gen_s, steps)
@@ -953,7 +1020,8 @@ def phase_serve(torch, dev):
     if not (cfg.n_layers == 38 and cfg.d_model == 2048
             and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
         fail(f"serve: {ZAMBA} is not the full-width config: {cfg}")
-    want = {"flash_attention": 6, "flash_attention_wgmma": 6, "ssd_scan": 32}
+    want = {"flash_attention": 6, "flash_attention_wgmma": 6, "ssd_scan": 32,
+            "ssd_scan_wgmma": 32}
     return serve_full(torch, dev, cfg, "serve", want, want)
 
 
@@ -1103,7 +1171,9 @@ def main() -> int:
                                 "mla": timed["flash_attention_mla"]},
             "moe_gmm": {"launches_by_path": {
                 p: served_moe[f"moe_gmm_{p}"] for p in gmm_paths()},
-                "decode": timed["moe_gmm_decode"]}}
+                "decode": timed["moe_gmm_decode"]},
+            "ssd_scan": {"launches_by_path": {
+                p: served[f"ssd_scan_{p}"] for p in ssd_paths()}}}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k],
                 "launches": main_path[k],

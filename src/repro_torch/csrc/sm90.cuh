@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the kernels that run on wgmma fed
-// by TMA (flash_attention.cu, moe_gmm.cu): mbarriers, TMA tile loads and
-// tensor maps, wgmma shared-memory descriptors, fences and waits, and
-// the wgmma instructions themselves.
+// by TMA (flash_attention.cu, moe_gmm.cu, ssd_scan.cu): mbarriers, TMA
+// tile loads and tensor maps, wgmma shared-memory descriptors, fences
+// and waits, and the wgmma instructions themselves.
 //
 // Each .cu under csrc/ is its own library (kernels/_build.py), so the
 // helpers live in an unnamed namespace: every library gets its copy.
@@ -59,6 +59,29 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one 64-column box of a 4-D map at (col, row, head, batch) from shared
+// memory; rows and columns outside the tensor are not written. Completes
+// in the bulk group that bulk_commit closes.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until the committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
 // K-major: lbo unused (1), sbo = 1024 (8 rows of 128 bytes). MN-major:
 // lbo = the stride between 64-column boxes, sbo = 1024 (8 k rows).
@@ -67,6 +90,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// orders this thread's generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma operands written by threads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {

@@ -12,31 +12,42 @@
 //
 // Bound on this card: at the serving shape (b 4, s 2048, h 64, p 64,
 // n 64, chunk 128) the scan moves ~143 MB (x and y 67 MB each) for
-// ~13 GFLOP, so bytes bound it. bf16 inputs run the chunk's four
-// products on the tensor cores (mma.sync, the second kernel below);
-// f32 inputs, held to (2e-4, 1e-5) of the f32 arithmetic, run them on
-// the fp32 cores (the first kernel).
+// ~13 GFLOP, so bytes bound it (0.043 ms at 3.35 TB/s).
+//
+// Three kernels; the wrapper (kernels/ssd_scan/kernel.py, _path) picks
+// one from the dtype, p, n and the alignment alone, and the C entry
+// refuses a path whose preconditions fail:
+// - "wgmma" (bf16, p and n multiples of 8, x, B and C on 16 bytes): the
+//   serving path. Chunk-parallel on wgmma fed by TMA, the state handed
+//   from chunk to chunk through L2 (the third kernel, below).
+// - "mma" (the other bf16: p or n not a multiple of 8, a base off 16
+//   bytes): one block per (batch, head, p tile) walks the chunks in
+//   order on mma.sync (the second kernel).
+// - "f32": f32 inputs, held to (2e-4, 1e-5) of the f32 arithmetic, on
+//   the fp32 cores (the first kernel).
 //
 // Design (fp32 cores). The TPU kernel walks a sequential (batch, head,
 // chunk) grid and keeps the state in VMEM scratch between chunk steps.
-// Hopper blocks run in no order, so here one block owns one (batch,
-// head, p tile) and loops over the chunks inside, with the state tile
-// in shared memory in f32 for the whole sequence. Per chunk the block
-// stages x, B, C (f32) and cs in shared memory, forms W = L o C B^T
-// (times dt, folded into the columns) in shared memory, and computes y
-// and the state update from register tiles (each thread owns an 8 x 4
-// tile of y and of the state update, interleaved by 16 so that a
-// warp's shared loads are broadcasts or consecutive). The p axis is
-// split into tiles only when the chunk's working set would not fit in
-// the 227 KB of shared memory (the wrapper picks the widest tile that
-// fits: 64 at the serving shape, so no work is repeated there); W is
-// independent of p and is recomputed by each p tile.
+// Here one block owns one (batch, head, p tile) and loops over the
+// chunks inside, with the state tile in shared memory in f32 for the
+// whole sequence. Per chunk the block stages x, B, C (f32) and cs in
+// shared memory, forms W = L o C B^T (times dt, folded into the
+// columns) in shared memory, and computes y and the state update from
+// register tiles (each thread owns an 8 x 4 tile of y and of the state
+// update, interleaved by 16 so that a warp's shared loads are
+// broadcasts or consecutive). The p axis is split into tiles only when
+// the chunk's working set would not fit in the 227 KB of shared memory
+// (the wrapper picks the widest tile that fits: 64 at the serving
+// shape, so no work is repeated there); W is independent of p and is
+// recomputed by each p tile.
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() of the
 // launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -308,8 +319,9 @@ int launch(const void* x, const void* dt, const void* A, const void* B,
 // x and (B o tail) are staged transposed in shared memory so that every
 // B fragment is a 32-bit load; rows of 8 extra bf16 keep a quad's loads
 // on distinct banks. n is padded with zeros to NN (64 or 128), the chunk
-// to 128 rows. x, B and C come in by 16-byte loads where n and p are
-// multiples of 8 (every config), else value by value.
+// to 128 rows. x, B and C come in value by value: what this kernel takes
+// (p or n not a multiple of 8, a base off 16 bytes) has no 16-byte
+// vectors.
 constexpr int kML = 128;         // chunk rows the layout is cut for
 constexpr int kMP = 64;          // p tile
 constexpr int kMThreads = 256;   // 8 warps
@@ -369,7 +381,7 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ B,
                     const bf16* __restrict__ C, const bf16* __restrict__ init,
                     bf16* __restrict__ y, bf16* __restrict__ fstate, int S,
-                    int H, int P, int N, int L, bool vec) {
+                    int H, int P, int N, int L) {
   constexpr int kPN = NN + kSPad;               // rows indexed by n
   constexpr int kPL = kML + kSPad;              // rows indexed by m
   constexpr int kSN = NN / 16;                  // state n tiles per warp
@@ -418,39 +430,16 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   for (int c = 0; c < nc; ++c) {
     const long long t0 = (long long)bi * S + (long long)c * L;
     __syncthreads();                            // previous chunk done
-    if (vec) {                                  // 16-byte loads, 8 values
-      for (int i = tid; i < kML * (NN / 8); i += kMThreads) {
-        const int m = i / (NN / 8), n8 = (i - m * (NN / 8)) * 8;
-        uint4 cv = make_uint4(0, 0, 0, 0), bv = cv;
-        if (m < L && n8 < N) {
-          cv = *reinterpret_cast<const uint4*>(C + (t0 + m) * N + n8);
-          bv = *reinterpret_cast<const uint4*>(B + (t0 + m) * N + n8);
-        }
-        *reinterpret_cast<uint4*>(Cs + m * kPN + n8) = cv;
-        *reinterpret_cast<uint4*>(Bs + m * kPN + n8) = bv;
-      }
-      for (int i = tid; i < kML * (kMP / 8); i += kMThreads) {
-        const int m = i / (kMP / 8), p8 = (i - m * (kMP / 8)) * 8;
-        uint4 xv = make_uint4(0, 0, 0, 0);
-        if (m < L && p8 < pt)
-          xv = *reinterpret_cast<const uint4*>(
-              x + ((t0 + m) * H + hi) * P + p0 + p8);
-        const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Xt[(p8 + j) * kPL + m] = xe[j];
-      }
-    } else {
-      for (int i = tid; i < kML * NN; i += kMThreads) {
-        const int m = i / NN, nn = i - m * NN;
-        const bool in = m < L && nn < N;
-        Cs[m * kPN + nn] = in ? C[(t0 + m) * N + nn] : zero;
-        Bs[m * kPN + nn] = in ? B[(t0 + m) * N + nn] : zero;
-      }
-      for (int i = tid; i < kML * kMP; i += kMThreads) {
-        const int m = i / kMP, pp = i - m * kMP;
-        Xt[pp * kPL + m] = (m < L && pp < pt)
-                               ? x[((t0 + m) * H + hi) * P + p0 + pp] : zero;
-      }
+    for (int i = tid; i < kML * NN; i += kMThreads) {
+      const int m = i / NN, nn = i - m * NN;
+      const bool in = m < L && nn < N;
+      Cs[m * kPN + nn] = in ? C[(t0 + m) * N + nn] : zero;
+      Bs[m * kPN + nn] = in ? B[(t0 + m) * N + nn] : zero;
+    }
+    for (int i = tid; i < kML * kMP; i += kMThreads) {
+      const int m = i / kMP, pp = i - m * kMP;
+      Xt[pp * kPL + m] = (m < L && pp < pt)
+                             ? x[((t0 + m) * H + hi) * P + p0 + pp] : zero;
     }
     for (int i = tid; i < kML; i += kMThreads)
       dts[i] = i < L ? dt[(t0 + i) * H + hi] : 0.f;
@@ -612,13 +601,488 @@ int launch_mma(const void* x, const void* dt, const void* A, const void* B,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const bool vec = N % 8 == 0 && P % 8 == 0 && aligned16(x) &&
-                   aligned16(B) && aligned16(C);
   const dim3 grid(b * H, (P + kMP - 1) / kMP);
   kern<<<grid, kMThreads, smem, stream>>>(
       (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)B,
       (const bf16*)C, (const bf16*)init, (bf16*)y, (bf16*)fstate, S, H, P, N,
-      L, vec);
+      L);
+  return (int)cudaGetLastError();
+}
+
+// ---- bf16 on wgmma fed by TMA, chunk-parallel: the "wgmma" path ----
+//
+// The kernel above walks 16 chunks in order per (batch, head): 256
+// sequential chains at the serving shape, each chunk loaded
+// synchronously. Here a block takes one work item, a (batch, chunk,
+// head, 64-wide p tile): 4096 items at the serving shape.
+// Items start in chunk order from an atomic ticket (the first thing a
+// block does), so the item a block waits on has started before it and
+// is resident: the lowest unfinished ticket never waits, and the grid
+// cannot deadlock however many blocks the card holds. A chain (batch,
+// head, p tile) hands its f32 state from chunk to chunk through one
+// slot in device memory (8 MB in all at the serving shape, L2-resident)
+// whose 64-bit words each carry a value and the number of the chunk
+// that wrote it (the decoupled look-back of single-pass scans: a reader
+// polls the data itself, so no flag and no memory fence sit on the
+// chain, where a flag behind a gpu-scope fence held each hop longest).
+// The wrapper allocates the ticket and the slots and zeroes them; the
+// kernel allocates nothing.
+//
+// Per item, 256 threads (two warpgroups of 64 chunk rows, wgmma's M):
+// 1. Thread 0 takes the ticket and loads the B and C tiles (128 rows x
+//    n) and the x tile (128 rows x 64 p, a box of x (b, s, h, p) at one
+//    head, rows H P apart) by TMA onto two mbarriers. Rows past
+//    the chunk and columns past p or n are TMA's zeros (maps over (p, h,
+//    row, batch * chunk) and (n, row, batch * chunk)), so any chunk
+//    <= 128 is taken.
+// 2. Warp 0 loads the head's dt (stride H, plain loads) and scans cs =
+//    cumsum(dt A) (4 rows a lane in order, then a shuffle scan), so cs
+//    differs from the in-order sum by a few ulp of |cs|: ~1e-5 relative
+//    in L, far inside bf16's 2^-9. tail_m = exp(cs_last - cs_m) dt_m and
+//    exp(cs_i) are taken once per row.
+// 3. The chain's slot words are read early (their latency hides behind
+//    steps 4-5); (B o tail) is formed once, in B's swizzled layout.
+// 4. upd = x^T (B o tail) on wgmma (x and B o tail both MN-major through
+//    the transpose bits), one warpgroup per 64 columns of n.
+// 5. The chain step, by those warpgroups: each thread waits until its
+//    slot words carry chunk c's tag (bounded; traps), or takes the
+//    initial state (or zeros) at chunk 0, and writes exp(cs_last) state
+//    + upd in f32 with tag c + 1 (the last chunk writes the final state
+//    in bf16 instead). This elementwise step over 64 x n values is the
+//    only serial work of a chunk hop.
+// 6. S = C B^T (both K-major, as flash's Q K^T), W = mask o exp(cs_i -
+//    cs_m) o dt_m o S in registers (a warp skips the pairs right of its
+//    rows' diagonal), Y = W X with W as the register A operand and X
+//    read MN-major through the transpose bit (flash's P V).
+// 7. Y += exp(cs_i) o (C state^T), the state from step 5 (K-major in
+//    shared memory); y is staged in bf16 and stored by one TMA store.
+// A block takes one head: with 2 or 4 heads a block sharing the ticket,
+// the B and C loads, S and the scans, ptxas spilled 644 bytes a thread
+// at the 128 registers that two blocks an SM allow, and the kernel took
+// twice as long (PERF.md, the heads sweep).
+// Precision: W, the state and B o tail are f32 values that the f32
+// arithmetic of the plain version keeps; each is split into a bf16 high
+// part and a bf16 remainder and its product runs twice (PERF.md derives
+// why one bf16 rounding of any of them would leave the tolerance at the
+// serving shape). C, B and x are bf16 at the source and exact.
+constexpr int kCRows = 128;      // chunk rows a tile holds
+constexpr int kCThreads = 256;   // two warpgroups
+constexpr int kCBox = kCRows * 128;   // bytes of a 128-row, 64-column box
+constexpr int kSBox = 64 * 128;       // bytes of a 64-row box (the state)
+constexpr int kRowF = 5 * kCRows;     // floats of one head's row terms
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int NN>
+struct CTile {
+  static constexpr int kNB = NN / 64;            // 64-column boxes of n
+  static constexpr int kB = kNB * kCBox;        // offsets in bytes: C at
+  static constexpr int kX = 2 * kB;             // 0, then B, x, (B o tail)
+  static constexpr int kBth = kX + kCBox;       // hi (also y's staging)
+  static constexpr int kBtl = kBth + kB;        // and lo, the state hi and
+  static constexpr int kSh = kBtl + kB;         // lo, the row terms, the
+  static constexpr int kSl = kSh + kNB * kSBox; // mbarriers
+  static constexpr int kF = kSl + kNB * kSBox;
+  static constexpr int kBar = kF + ((kRowF + 1) * 4 + 15) / 16 * 16;
+  static constexpr int kSmem = kBar + 32 + 1024;  // and the item; slack
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A slot word: an f32 state value in the low half, the number of the
+// chunk whose state it is in the high half. A 64-bit word is read and
+// written whole, so a reader that sees the tag it waits for holds that
+// chunk's value: no flag, no fence.
+__device__ __forceinline__ ulonglong2 ld_slot(const unsigned long long* p) {
+  ulonglong2 v;
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];\n"
+               : "=l"(v.x), "=l"(v.y) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_slot(unsigned long long* p, float a,
+                                        float b, unsigned tag) {
+  const unsigned long long hi = (unsigned long long)tag << 32;
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};\n"
+               :: "l"(p), "l"(hi | __float_as_uint(a)),
+                  "l"(hi | __float_as_uint(b))
+               : "memory");
+}
+
+__device__ __forceinline__ bool tagged(ulonglong2 v, unsigned tag) {
+  return (unsigned)(v.x >> 32) == tag && (unsigned)(v.y >> 32) == tag;
+}
+
+// (a, b) = hi + lo with both bf16 pairs (a in the low half); -> hi
+__device__ __forceinline__ uint32_t pack_split(float a, float b,
+                                               uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int NN>
+__global__ void __launch_bounds__(kCThreads, 2)
+ssd_scan_chunk_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tc,
+                 const __grid_constant__ CUtensorMap ty,
+                 const float* __restrict__ dt, const float* __restrict__ A,
+                 const bf16* __restrict__ init, bf16* __restrict__ fstate,
+                 unsigned* __restrict__ ticket,
+                 unsigned long long* __restrict__ slots, int S, int H,
+                 int P, int N, int L, int nc, int items_per_chunk) {
+  using T = CTile<NN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_u32(smem_raw));
+  float* cs2 = reinterpret_cast<float*>(sm + T::kF);  // cs log2(e)
+  float* tail = cs2 + kCRows;          // exp(cs_last - cs) dt
+  float* ecs = tail + kCRows;          // exp(cs)
+  float* col = ecs + kCRows;           // (-cs2_m, dt_m) pairs
+  float* s_dec = col + 2 * kCRows;     // exp(cs_last)
+  int* s_item = reinterpret_cast<int*>(sm + T::kBar + 16);
+  const uint32_t bar = base + T::kBar, barx = bar + 8;
+  const int tid = threadIdx.x, PT = (P + 63) / 64;
+
+  if (tid == 0) {             // the ticket; C, B and x by TMA
+    mbar_init(bar, 1);
+    mbar_init(barx, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int item = (int)atomicAdd(ticket, 1u);
+    *s_item = item;
+    const int c = item / items_per_chunk, k = item % items_per_chunk;
+    const int bc = (k / (PT * H)) * nc + c;         // batch * nc + chunk
+    mbar_expect_tx(bar, 2 * T::kB);
+#pragma unroll
+    for (int j = 0; j < T::kNB; ++j) {
+      tma_load3(base + j * kCBox, &tc, bar, j * 64, 0, bc);
+      tma_load3(base + T::kB + j * kCBox, &tb, bar, j * 64, 0, bc);
+    }
+    mbar_expect_tx(barx, kCBox);
+    tma_load(base + T::kX, &tx, barx, (k % PT) * 64, (k / PT) % H, 0, bc);
+  }
+  __syncthreads();
+  const int item = *s_item;
+  const int c = item / items_per_chunk, k = item % items_per_chunk;
+  const int pt = k % PT, hd = (k / PT) % H, bi = k / (PT * H);
+  const int p0 = pt * 64, bc = bi * nc + c;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  if (tid < 32) {             // warp 0: the head's dt and cs
+    const long long row0 = (long long)bi * S + (long long)c * L;
+    float d[4], v[4], run = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 4 * lane + j;
+      d[j] = r < L ? dt[(row0 + r) * H + hd] : 0.f;
+    }
+    // cs = cumsum(dt A): 4 rows a lane in order, then a shuffle scan
+    const float a = A[hd];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      run = __fadd_rn(run, __fmul_rn(d[j], a));
+      v[j] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl = __fadd_rn(incl, u);
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.f;
+    const float last = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 4 * lane + j;
+      const float cs = __fadd_rn(excl, v[j]);     // rows past L: cs_last
+      cs2[r] = cs * kLog2e;
+      col[2 * r] = -cs2[r];
+      col[2 * r + 1] = d[j];
+      ecs[r] = expf(cs);
+      tail[r] = expf(last - cs) * d[j];           // rows past L: dt 0
+    }
+    if (lane == 0) *s_dec = expf(last);
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+  // the warpgroup, uniform as ptxas sees it (a shuffle from lane 0)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  // descriptors: C (A operand, this warpgroup's 64 rows), B, x, B o tail
+  const uint64_t dca = sw128_desc(base + wg * 64 * 128, 16, 1024);
+  const uint64_t dbk = sw128_desc(base + T::kB, 16, 1024);
+  const uint64_t dxm = sw128_desc(base + T::kX, kCBox, 1024);
+  const int r0 = wg * 64 + warp * 16 + g, r1 = r0 + 8;  // chunk rows
+  const int kc = (bi * H + hd) * PT + pt;           // the chain
+  // The chain's slot words (pair r = 2 j + h2 of this thread's upd
+  // fragment at ((wg 16 + r) 128 + thread) 2: a warp's loads and
+  // stores are 512 contiguous bytes). Chunk c's state is read now,
+  // before the B o tail pass and upd, so the load's latency hides
+  // behind them; words that do not carry tag c yet are read again.
+  unsigned long long* slot = slots + (size_t)kc * 64 * NN +
+                             (size_t)wg * 16 * 256 + (tid & 127) * 2;
+  ulonglong2 w[16];
+  if (wg < T::kNB && c > 0) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) w[r] = ld_slot(slot + r * 256);
+  }
+
+  // (B o tail) hi / lo at B's own (swizzled) offsets: 16 bytes a step
+  for (int u = tid; u < T::kNB * kCBox / 16; u += kCThreads) {
+    const int off = u * 16;
+    const float tm = tail[(off & (kCBox - 1)) >> 7];
+    const uint4 bv = *reinterpret_cast<const uint4*>(sm + T::kB + off);
+    const uint32_t* bw = reinterpret_cast<const uint32_t*>(&bv);
+    uint4 hv, lv;
+    uint32_t* hw = reinterpret_cast<uint32_t*>(&hv);
+    uint32_t* lw = reinterpret_cast<uint32_t*>(&lv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 b2 =
+          *reinterpret_cast<const __nv_bfloat162*>(&bw[j]);
+      hw[j] = pack_split(__bfloat162float(b2.x) * tm,
+                         __bfloat162float(b2.y) * tm, lw[j]);
+    }
+    *reinterpret_cast<uint4*>(sm + T::kBth + off) = hv;
+    *reinterpret_cast<uint4*>(sm + T::kBtl + off) = lv;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  mbar_wait(barx, 0);                // x
+
+  if (wg < T::kNB) {                 // n columns [64 wg, 64 wg + 64)
+    float upd[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) upd[j] = 0.f;
+    const uint64_t dbh =
+        sw128_desc(base + T::kBth + wg * kCBox, kCBox, 1024);
+    const uint64_t dbl =
+        sw128_desc(base + T::kBtl + wg * kCBox, kCBox, 1024);
+    pin(upd);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCRows / 16; ++kk)  // 16 chunk rows a step
+      Wgmma<64>::ss<1, 1>(upd, dxm + kk * 128, dbh + kk * 128, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kCRows / 16; ++kk)
+      Wgmma<64>::ss<1, 1>(upd, dxm + kk * 128, dbl + kk * 128, 1);
+    wg_commit();
+    wg_wait<0>();
+    pin(upd);
+
+    // the chain step: accumulator rows p = 16 warp + g (+ 8), columns
+    // n = 64 wg + 8 j + 2 t4 (+ 1)
+    const float dec = *s_dec;
+    const long long sbase = ((long long)bi * H + hd) * P + p0;
+    float2 st[16];
+    if (c > 0) {                     // until every word carries tag c
+      uint32_t pend = 0u;
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        if (!tagged(w[r], (unsigned)c)) pend |= 1u << r;
+      for (uint32_t n = 0; pend != 0u; ++n) {
+        if (n == (1u << 24)) __trap();  // seconds: fail, never hang
+        __nanosleep(32);
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          if (pend >> r & 1u) w[r] = ld_slot(slot + r * 256);
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          if ((pend >> r & 1u) && tagged(w[r], (unsigned)c))
+            pend &= ~(1u << r);
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r)
+        st[r] = make_float2(__uint_as_float((unsigned)w[r].x),
+                            __uint_as_float((unsigned)w[r].y));
+    } else {                         // chunk 0: the initial state
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int p = 16 * warp + g + 8 * (r & 1);
+        const int n = 64 * wg + 8 * (r >> 1) + 2 * t4;
+        st[r] = make_float2(0.f, 0.f);
+        if (init != nullptr && p0 + p < P && n < N) {  // any alignment
+          const bf16* iv = init + (sbase + p) * N + n;
+          st[r] = make_float2(__bfloat162float(iv[0]),
+                              __bfloat162float(iv[1]));
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int p = 16 * warp + g + 8 * (r & 1);
+      const int n = 64 * wg + 8 * (r >> 1) + 2 * t4;
+      const float nx0 = fmaf(st[r].x, dec, upd[2 * r]);
+      const float nx1 = fmaf(st[r].y, dec, upd[2 * r + 1]);
+      if (c + 1 < nc)
+        st_slot(slot + r * 256, nx0, nx1, (unsigned)(c + 1));
+      else if (p0 + p < P && n < N)
+        *reinterpret_cast<__nv_bfloat162*>(fstate + (sbase + p) * N + n) =
+            __floats2bfloat162_rn(nx0, nx1);
+      // state_in, K-major (rows p, columns n) in 128-byte-swizzled
+      // 64-column boxes, for C state^T
+      const int cl = n & 63;
+      const int off = wg * kSBox + p * 128 +
+                      (((cl >> 3) ^ (p & 7)) << 4) + (cl & 7) * 2;
+      uint32_t lo;
+      *reinterpret_cast<uint32_t*>(sm + T::kSh + off) =
+          pack_split(st[r].x, st[r].y, lo);
+      *reinterpret_cast<uint32_t*>(sm + T::kSl + off) = lo;
+    }
+    fence_proxy_async();
+  }
+
+  // S = C B^T for this warpgroup's 64 rows, all 128 columns
+  float sc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+  pin(sc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NN / 16; ++kk) {      // box kk / 4, 32 bytes
+    const uint32_t off = (kk >> 2) * (kCBox >> 4) + (kk & 3) * 2;
+    Wgmma<128>::ss(sc, dca + off, dbk + off, kk > 0);
+  }
+  wg_commit();
+  wg_wait<0>();
+  pin(sc);
+
+  // W = mask o exp(cs_i - cs_m) o dt_m o S (exp2 of cs log2(e)), split
+  // hi / lo as wgmma's register A operand (S's accumulator layout is
+  // the A layout: k-step kk, pair q holds row r0 (q even) or r1 (q
+  // odd), columns 16 kk + 8 (q / 2) + 2 t4, + 1). A pair right of its
+  // rows' diagonal is 0 (decided per warp), one on it is masked. Rows
+  // past L have C's zeros, so S and W are 0 there.
+  const float c0 = cs2[r0], c1 = cs2[r1];
+  uint32_t wh[8][4], wl[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      wh[kk][q] = wl[kk][q] = 0u;
+      const int m8 = 16 * kk + 8 * (q >> 1);  // this pair's 8 columns
+      const int top = r0 - g + 8 * (q & 1);   // its rows' first
+      if (m8 > top) continue;                 // right of the diagonal
+      const int m = m8 + 2 * t4;
+      const float4 cm = *reinterpret_cast<const float4*>(col + 2 * m);
+      const float ci = (q & 1) ? c1 : c0;
+      float w0 = ex2(ci + cm.x) * cm.y * sc[8 * kk + 2 * q];
+      float w1 = ex2(ci + cm.z) * cm.w * sc[8 * kk + 2 * q + 1];
+      if (m8 == top) {                        // on the diagonal
+        const int i = (q & 1) ? r1 : r0;
+        w0 = m <= i ? w0 : 0.f;
+        w1 = m + 1 <= i ? w1 : 0.f;
+      }
+      wh[kk][q] = pack_split(w0, w1, wl[kk][q]);
+    }
+
+  // Y = W X (W hi, then lo), X MN-major
+  float yacc[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) yacc[j] = 0.f;
+  pin(yacc);
+  pin(wh);
+  pin(wl);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    Wgmma<64>::rs(yacc, wh[kk], dxm + kk * 128);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    Wgmma<64>::rs(yacc, wl[kk], dxm + kk * 128);
+  wg_commit();
+  wg_wait<0>();
+  pin(yacc);
+  pin(wh);
+  pin(wl);
+
+  __syncthreads();                   // the state is in shared memory
+  float yo[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) yo[j] = 0.f;
+  const uint64_t dsh = sw128_desc(base + T::kSh, 16, 1024);
+  const uint64_t dsl = sw128_desc(base + T::kSl, 16, 1024);
+  pin(yo);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NN / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 2;
+    Wgmma<64>::ss(yo, dca + (kk >> 2) * (kCBox >> 4) + off,
+                  dsh + (kk >> 2) * (kSBox >> 4) + off, kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < NN / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 2;
+    Wgmma<64>::ss(yo, dca + (kk >> 2) * (kCBox >> 4) + off,
+                  dsl + (kk >> 2) * (kSBox >> 4) + off, 1);
+  }
+  wg_commit();
+  wg_wait<0>();
+  pin(yo);
+
+  // y in bf16, staged where B o tail was (read by upd), in the y map's
+  // swizzled layout; one TMA store writes the rows and columns inside
+  // the tensor
+  const float e0 = ecs[r0], e1 = ecs[r1];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int off = ((j ^ g) << 4) + 4 * t4;  // r0 & 7 == r1 & 7 == g
+    *reinterpret_cast<__nv_bfloat162*>(sm + T::kBth + r0 * 128 + off) =
+        __floats2bfloat162_rn(fmaf(e0, yo[4 * j], yacc[4 * j]),
+                              fmaf(e0, yo[4 * j + 1], yacc[4 * j + 1]));
+    *reinterpret_cast<__nv_bfloat162*>(sm + T::kBth + r1 * 128 + off) =
+        __floats2bfloat162_rn(fmaf(e1, yo[4 * j + 2], yacc[4 * j + 2]),
+                              fmaf(e1, yo[4 * j + 3], yacc[4 * j + 3]));
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma_store(&ty, base + T::kBth, p0, hd, 0, bc);
+    bulk_commit();
+    bulk_wait_read();
+  }
+}
+
+template <int NN>
+int launch_chunk(const void* x, const void* dt, const void* A, const void* B,
+                 const void* C, const void* init, void* y, void* fstate,
+                 void* ticket, void* slots, int b, int S, int H, int P,
+                 int N, int L, cudaStream_t stream) {
+  using T = CTile<NN>;
+  const int nc = S / L;
+  const int per_chunk = b * H * ((P + 63) / 64);
+  // x, y (b, S, H, P) as (P, H, row, batch * chunk); B, C (b, S, N) as
+  // (N, row, batch * chunk): rows past L are outside, so TMA zero-fills
+  // them on loads and skips them on the store
+  CUtensorMap tx, tb, tc, ty;
+  const cuuint64_t xs[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)L,
+                            (cuuint64_t)b * nc};
+  const cuuint64_t xst[3] = {(cuuint64_t)P * 2, (cuuint64_t)H * P * 2,
+                             (cuuint64_t)L * H * P * 2};
+  const cuuint32_t xbox[4] = {64, 1, kCRows, 1};
+  const cuuint64_t bs[3] = {(cuuint64_t)N, (cuuint64_t)L, (cuuint64_t)b * nc};
+  const cuuint64_t bst[2] = {(cuuint64_t)N * 2, (cuuint64_t)L * N * 2};
+  const cuuint32_t bbox[3] = {64, kCRows, 1};
+  int err = tma_map_bf16(&tx, x, 4, xs, xst, xbox);
+  if (err == 0) err = tma_map_bf16(&ty, y, 4, xs, xst, xbox);
+  if (err == 0) err = tma_map_bf16(&tb, B, 3, bs, bst, bbox);
+  if (err == 0) err = tma_map_bf16(&tc, C, 3, bs, bst, bbox);
+  if (err != 0) return err;
+  auto kern = ssd_scan_chunk_kernel<NN>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<nc * per_chunk, kCThreads, T::kSmem, stream>>>(
+      tx, tb, tc, ty, (const float*)dt, (const float*)A, (const bf16*)init,
+      (bf16*)fstate, (unsigned*)ticket, (unsigned long long*)slots, S, H, P,
+      N, L, nc, per_chunk);
   return (int)cudaGetLastError();
 }
 
@@ -627,19 +1091,38 @@ int launch_mma(const void* x, const void* dt, const void* A, const void* B,
 // x (b, S, H, P), dt (b, S, H) f32, A (H,) f32, B/C (b, S, N),
 // init (b, H, P, N) or null (zeros), y (b, S, H, P), fstate (b, H, P, N);
 // all contiguous. S % L == 0, L <= 128, P, N <= 128. dtype (of x, B, C,
-// init, y, fstate): 0 float32 (fp32 cores), 1 bfloat16 (tensor cores).
+// init, y, fstate): 0 float32, 1 bfloat16. path, as the wrapper's _path
+// chose it: 0 the fp32 cores (f32), 1 mma.sync (bf16), 2 wgmma + TMA
+// (bf16, P and N multiples of 8, x, B, C on 16 bytes; scratch: 2 +
+// chains x 64 x NN zeroed 64-bit words on 16 bytes, the ticket and then
+// the slots, NN = 64 for N <= 64 else 128, a chain being a (batch,
+// head, 64-wide p tile)). A path that does not take these inputs
+// returns cudaErrorInvalidValue and launches nothing.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A,
                         const void* B, const void* C, const void* init,
-                        void* y, void* fstate, int dtype, int b, int S,
-                        int H, int P, int N, int L, void* stream) {
-  if (L > kMaxL || N > kMaxN || P > 2 * kMaxPT || S % L != 0)
+                        void* y, void* fstate, void* scratch,
+                        int dtype, int path, int b, int S, int H, int P,
+                        int N, int L, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (L <= 0 || L > kMaxL || N > kMaxN || P > 2 * kMaxPT || S % L != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch(x, dt, A, B, C, init, y, fstate, b, S, H, P, N, L,
-                  (cudaStream_t)stream);
-  if (N <= 64)
-    return launch_mma<64>(x, dt, A, B, C, init, y, fstate, b, S, H, P, N, L,
-                          (cudaStream_t)stream);
-  return launch_mma<128>(x, dt, A, B, C, init, y, fstate, b, S, H, P, N, L,
-                         (cudaStream_t)stream);
+  if (path == 0 && dtype == 0)
+    return launch(x, dt, A, B, C, init, y, fstate, b, S, H, P, N, L, st);
+  if (path == 1 && dtype == 1) {
+    if (N <= 64)
+      return launch_mma<64>(x, dt, A, B, C, init, y, fstate, b, S, H, P, N,
+                            L, st);
+    return launch_mma<128>(x, dt, A, B, C, init, y, fstate, b, S, H, P, N,
+                           L, st);
+  }
+  if (path == 2 && dtype == 1 && P % 8 == 0 && N % 8 == 0 && aligned16(x) &&
+      aligned16(B) && aligned16(C) && aligned16(scratch)) {
+    void* slots = static_cast<unsigned long long*>(scratch) + 2;
+    if (N <= 64)
+      return launch_chunk<64>(x, dt, A, B, C, init, y, fstate, scratch,
+                              slots, b, S, H, P, N, L, st);
+    return launch_chunk<128>(x, dt, A, B, C, init, y, fstate, scratch, slots,
+                             b, S, H, P, N, L, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

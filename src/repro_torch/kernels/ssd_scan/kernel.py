@@ -10,11 +10,13 @@ is carried in f32 from the initial state; y and the final state come
 back in x's dtype. x, B, C and the initial state share one dtype; dt
 and A are f32, as ``ssm_apply`` hands them over.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-(``csrc/ssd_scan.cu``) or raises; on a CPU tensor it runs the plain
+On a CUDA tensor the wrapper launches one of the hand-written Hopper
+kernels (``csrc/ssd_scan.cu``) or raises; ``_path`` picks it from the
+dtype, p, n and the alignment alone. On a CPU tensor it runs the plain
 version beside it, which is the same per-chunk arithmetic with the f32
 state. (The model's own oracle, ``models/ssm.ssd_scan_ref``, carries its
-state in x's dtype; both exist.) ``LAUNCHES`` counts kernel launches.
+state in x's dtype; both exist.) ``LAUNCHES["ssd_scan"]`` counts kernel
+launches, ``LAUNCHES["ssd_scan_<path>"]`` those of each path.
 """
 from __future__ import annotations
 
@@ -29,11 +31,14 @@ MAX_DIM = 128                   # p and n
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                 _P],
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _P],
 }
+# the C entry's path codes
+PATHS = {"f32": 0, "mma": 1, "wgmma": 2}
+P_TILE = 64                     # p columns of one chain of the wgmma path
 
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, **{f"ssd_scan_{p}": 0 for p in PATHS}}
 
 
 def _lib():
@@ -113,6 +118,34 @@ def _check(x, dt, A, B, C, chunk, initial_state):
     return tensors
 
 
+def _path(dtype, p: int, n: int, aligned: bool) -> str:
+    """The kernel a CUDA call runs. "f32" (the fp32 cores): float32.
+    "wgmma" (chunk-parallel on wgmma fed by TMA): bf16 with p and n
+    multiples of 8 and ``aligned`` x, B and C. "mma" (one block walks
+    the chunks in order on mma.sync): the other bf16."""
+    if dtype == torch.float32:
+        return "f32"
+    if aligned and p % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "mma"
+
+
+def _aligned(tensors) -> bool:
+    """What TMA asks of a contiguous tensor's base: 16 bytes."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def lookback_scratch(b: int, h: int, p: int, n: int) -> int:
+    """64-bit words of the wgmma path's scratch, zeroed each call: the
+    ticket (two words, so the slots start on 16 bytes), then one (64, 64
+    or 128) state slot per chain, through which a chunk hands its f32
+    state to the next; each word holds a value and the number of the
+    chunk that wrote it. A chain is one (batch, head, 64-wide p
+    tile)."""
+    chains = b * h * -(-p // P_TILE)
+    return 2 + chains * P_TILE * (64 if n <= 64 else 128)
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
     """Kernel wrapper of ``ssd_scan_plain``."""
     tensors = _check(x, dt, A, B, C, chunk, initial_state)
@@ -125,13 +158,21 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
         raise ValueError(f"ssd_scan: chunk {chunk}, p {p}, n {n}: the "
                          f"kernel takes chunk, p, n <= 128")
     x, dt, A, B, C, *init = [t.contiguous() for t in tensors]
+    path = _path(x.dtype, p, n, _aligned((x, B, C)))
     y = torch.empty_like(x)
     fs = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
     if y.numel():
+        scratch = None
+        if path == "wgmma":
+            scratch = torch.zeros(lookback_scratch(b, h, p, n),
+                                  dtype=torch.int64, device=x.device)
         _build.check(_lib().ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), init[0].data_ptr() if init else None,
-            y.data_ptr(), fs.data_ptr(), _DTYPES[x.dtype], b, s, h, p, n,
-            chunk, _build.stream_ptr(x)), "ssd_scan")
+            y.data_ptr(), fs.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            _DTYPES[x.dtype], PATHS[path], b, s, h, p, n, chunk,
+            _build.stream_ptr(x)), f"ssd_scan ({path})")
         LAUNCHES["ssd_scan"] += 1
+        LAUNCHES[f"ssd_scan_{path}"] += 1
     return y, fs

@@ -137,21 +137,19 @@ def test_flash_paths_match_plain(card, layout, B, H, K, S, T, D, Dv, causal,
     assert torch.all(out[:, :, empty] == 0)
 
 
-SSD_CASES = [  # (b, s, h, p, n, chunk)
-    (4, 2048, 64, 64, 64, 128),       # the serving shape (zamba2-1.2b)
-    (1, 512, 4, 64, 128, 128),        # mamba2's state size
-    (2, 256, 3, 32, 16, 32),
-    (1, 256, 2, 128, 128, 64),
-    (1, 192, 2, 24, 20, 64),          # n, p % 8 != 0: loads value by value
+SSD_CASES = [  # (b, s, h, p, n, chunk, bf16 path)
+    (4, 2048, 64, 64, 64, 128, "wgmma"),   # the serving shape (zamba2-1.2b)
+    (1, 512, 4, 64, 128, 128, "wgmma"),    # mamba2's state size
+    (2, 256, 3, 32, 16, 32, "wgmma"),
+    (1, 256, 2, 128, 128, 64, "wgmma"),    # two p tiles
+    (1, 192, 2, 24, 20, 64, "mma"),        # n, p % 8 != 0: no TMA
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
-def test_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, dtype):
+def _ssd_inputs(b, s, h, p, n, dtype, card, with_init=True, shift=False):
     """The reference kernel test's distributions (normal x, B, C;
-    softplus dt; A = -exp(normal); initial state normal * 0.1)."""
+    softplus dt; A = -exp(normal); initial state normal * 0.1). shift:
+    x, B and C one element past a 16-byte boundary."""
     g = torch.Generator().manual_seed(0)
 
     def r(*shape):
@@ -162,15 +160,64 @@ def test_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, dtype):
     dt, A = F.softplus(r(b, s, h)), -torch.exp(r(h))
     init = (r(b, h, p, n) * 0.1).to(low)
     x, dt, A, B, C, init = (t.to(card) for t in (x, dt, A, B, C, init))
-    n0 = ssd.LAUNCHES["ssd_scan"]
+    if shift:
+        x, B, C = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(
+            t.shape) for t in (x, B, C))
+    return x, dt, A, B, C, init if with_init else None
+
+
+def _ssd_matches_plain(x, dt, A, B, C, init, chunk, path):
+    """One wrapper call: one launch, on ``path``, within SSD_TOL of the
+    plain version."""
+    before = dict(ssd.LAUNCHES)
     y, f = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=init)
     torch.cuda.synchronize()
-    assert ssd.LAUNCHES["ssd_scan"] == n0 + 1
+    assert ssd.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert ssd.LAUNCHES[f"ssd_scan_{path}"] == before[f"ssd_scan_{path}"] + 1
     y_p, f_p = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                                   initial_state=init)
-    atol, rtol = SSD_TOL[dtype]
+    atol, rtol = SSD_TOL[str(x.dtype).split(".")[-1]]
     torch.testing.assert_close(y.float(), y_p.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(f.float(), f_p.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,path", SSD_CASES)
+def test_ssd_kernel_matches_plain(card, b, s, h, p, n, chunk, path, dtype):
+    """Each case with an initial state, on its path (f32: the fp32
+    cores)."""
+    x, dt, A, B, C, init = _ssd_inputs(b, s, h, p, n, dtype, card)
+    _ssd_matches_plain(x, dt, A, B, C, init, chunk,
+                       "f32" if dtype == "float32" else path)
+
+
+# bf16 cases of the wgmma path's look-back and edges, and the mma path
+# (b, s, h, p, n, chunk, initial state, shift, path)
+SSD_PATH_CASES = [
+    # 128 chunks on 16 chains: 2048 items, many more than the card
+    # holds at once, so blocks wait on the chunk before theirs
+    (2, 8192, 8, 64, 64, 64, True, False, "wgmma"),
+    (2, 8192, 8, 64, 64, 64, False, False, "wgmma"),
+    (4, 2048, 64, 64, 64, 128, False, False, "wgmma"),  # serving, no init
+    (1, 4096, 4, 64, 128, 64, True, False, "wgmma"),    # n 128, 64 chunks
+    (2, 2048, 2, 128, 64, 32, True, False, "wgmma"),    # two p tiles
+    (1, 480, 2, 64, 64, 40, True, False, "wgmma"),      # chunk 40
+    (2, 256, 3, 8, 8, 128, False, False, "wgmma"),      # p, n 8
+    (1, 128, 1, 64, 64, 128, True, False, "wgmma"),     # one chunk
+    (2, 1024, 4, 64, 64, 128, True, True, "mma"),       # off 16 bytes
+    (1, 256, 2, 64, 68, 64, False, False, "mma"),       # n % 8 != 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_init,shift,path",
+                         SSD_PATH_CASES)
+def test_ssd_paths_match_plain(card, b, s, h, p, n, chunk, with_init, shift,
+                               path):
+    x, dt, A, B, C, init = _ssd_inputs(b, s, h, p, n, "bfloat16", card,
+                                       with_init, shift)
+    _ssd_matches_plain(x, dt, A, B, C, init, chunk, path)
 
 
 GMM_CASES = [  # (E, C, d, F, act, x dtype, weight dtype, scale, path)

@@ -117,3 +117,82 @@ def test_rejects_bad_inputs():
         ssd.ssd_scan(x, dt.double(), A, B, C, chunk=32)
     with pytest.raises(ValueError, match="share"):
         ssd.ssd_scan(x, dt, A, B.to(torch.bfloat16), C, chunk=32)
+
+
+# A CUDA call's kernel, from the dtype, p, n and the alignment alone:
+# f32 on the fp32 cores; bf16 with p and n multiples of 8 and x, B, C on
+# 16 bytes on "wgmma" (TMA's strides and base); the rest of bf16 on
+# "mma".
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("p,n", [(64, 64), (64, 128), (128, 128), (32, 16),
+                                 (8, 8), (24, 20), (64, 20), (20, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_path_choice(dtype, p, n, aligned):
+    if dtype == "float32":
+        want = "f32"
+    elif aligned and p % 8 == 0 and n % 8 == 0:
+        want = "wgmma"
+    else:
+        want = "mma"
+    assert ssd._path(_TORCH[dtype], p, n, aligned) == want
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
+def test_serving_shapes_take_the_wgmma_path(arch):
+    """zamba2's (p 64, n 64) and mamba2's (p 64, n 128) SSM layers in
+    bf16; their chunk (128) is within the kernel's."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    assert cfg.ssm_chunk <= ssd.MAX_CHUNK
+    assert ssd._path(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state,
+                     True) == "wgmma"
+    assert ssd._path(torch.float32, cfg.ssm_head_dim, cfg.ssm_state,
+                     True) == "f32"
+
+
+@pytest.mark.parametrize("view,aligned", [
+    ("whole", True), ("head_slice", True), ("shift", False)])
+def test_alignment_of_views(view, aligned):
+    """A contiguous x and a slice of whole batches start on 16 bytes; a
+    view one element past a boundary does not."""
+    x = torch.zeros(3, 16, 4, 8, dtype=torch.bfloat16)
+    if view == "head_slice":
+        x = x[1:]
+    elif view == "shift":
+        x = x.reshape(-1)[1:1 + 2 * 16 * 4 * 8].view(2, 16, 4, 8)
+    assert x.is_contiguous()
+    assert ssd._aligned((x,)) == aligned
+
+
+# (b, h, p, n) -> 64-bit words of the look-back scratch: the ticket (2)
+# and one 64 x 64 (n <= 64) or 64 x 128 slot per (batch, head, 64-wide
+# p tile)
+@pytest.mark.parametrize("b,h,p,n,words", [
+    (4, 64, 64, 64, 2 + 256 * 64 * 64),      # zamba2 serving: 8 MB
+    (4, 80, 64, 128, 2 + 320 * 64 * 128),    # mamba2's n
+    (1, 2, 128, 128, 2 + 4 * 64 * 128),      # two p tiles
+    (2, 3, 24, 20, 2 + 6 * 64 * 64),         # padded to 64 x 64
+    (2, 8, 64, 64, 2 + 16 * 64 * 64),
+    (1, 1, 8, 8, 2 + 64 * 64),               # the smallest wgmma shape
+])
+def test_lookback_scratch(b, h, p, n, words):
+    assert ssd.lookback_scratch(b, h, p, n) == words
+    if (b, h, p, n) == (4, 64, 64, 64):
+        assert words * 8 == 8 * 2 ** 20 + 16
+
+
+def test_wrapper_keeps_the_plain_version_on_cpu():
+    """A CPU bf16 call at a wgmma-path shape runs the plain version and
+    counts no launch, by path or in total."""
+    x, dt, A, B, C, init = _inputs(1, 256, 2, 64, 64, seed=3)
+    bf = torch.bfloat16
+    low = [torch.from_numpy(a).to(bf) for a in (x, B, C, init)]
+    y, f = ssd.ssd_scan(low[0], torch.from_numpy(dt), torch.from_numpy(A),
+                        low[1], low[2], chunk=128, initial_state=low[3])
+    y_p, f_p = ssd.ssd_scan_plain(low[0], torch.from_numpy(dt),
+                                  torch.from_numpy(A), low[1], low[2],
+                                  chunk=128, initial_state=low[3])
+    assert torch.equal(y, y_p) and torch.equal(f, f_p)
+    assert set(ssd.LAUNCHES) == {"ssd_scan", "ssd_scan_f32", "ssd_scan_mma",
+                                 "ssd_scan_wgmma"}
+
