@@ -9,16 +9,27 @@ non-zero exit:
 1. device   the card, torch/CUDA versions, the TF32 switches, and the
             build of the CUDA kernels from ``src/repro_torch/csrc``.
 2. kernels  each kernel against its plain PyTorch version on the card
-            (edge shapes and the main path's shapes): int8 q/scale/zp
-            exactly equal, float outputs within 1e-6. Device time per
-            call of the kernel and of the plain version (CUDA events
-            around a run of calls that a spin kernel lets the host queue
-            in full) with the L2 flushed before each call and warm, the
-            time per call as the host sees it (CUDA events around one
-            call on an idle card), and the bound.
+            (edge shapes and the main path's shapes): the int8 pair
+            bit-equal (q, scale, zp and x'), as rows and as lists (a
+            vgg16 model leg, both feature shapes, one value, g not a
+            multiple of 4, a list past the segment cap, an empty list,
+            views off 16 bytes), other float outputs within 1e-6.
+            Device time per call of the kernel and of the plain version
+            (CUDA events around a run of calls that a spin kernel lets
+            the host queue in full) with the L2 flushed before each call
+            and warm, the time per call as the host sees it (CUDA events
+            around one call on an idle card), and the bound; the int8
+            pair at vgg16's model legs and feature transfers, beside the
+            time of an empty kernel (the launch floor).
+   int8_leg_side_by_side  one vgg16 model leg through the int8 codec as
+            a per-leaf loop of list-of-one round trips and as one list
+            call: device time and the host's wall per leg.
 3. train    ``repro_torch.launch.train`` on vgg16 (full width), int8
             codecs on every leg with error feedback, sequential path:
-            the quantize/dequantize kernels must have launched.
+            exactly 32 quantize and 32 dequantize launches (16 model
+            legs, 16 feature transfers), clock 5.61946362688 and comm
+            14229056.0; then the same run under the profiler, device ms
+            by kernel group and the card's idle share.
 4. fused    the same run with ``--fused-comm``, once with int8 (the
             roundtrip kernel must launch) and once with top-k (the
             sparse-combine kernel must launch).
@@ -197,11 +208,14 @@ def device_ms(fn, cold: bool, iters: int = 20) -> float:
             junk.fill_(1.0)
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    flush()
-    fn()
-    host_ms = (time.perf_counter() - t0) * 1e3     # to queue one call
-    spin = int(_spin_cycles_per_ms() * (2.0 * host_ms * iters + 5.0))
+    host_ms = 0.0                                  # to queue one call
+    for _ in range(3):
+        t0 = time.perf_counter()
+        flush()
+        fn()
+        host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    spin = int(_spin_cycles_per_ms() * (4.0 * host_ms * iters + 5.0))
 
     def run(body) -> float:
         a = torch.cuda.Event(enable_timing=True)
@@ -256,6 +270,43 @@ def int8_inputs(dev, gen):
     return xs
 
 
+# the int8 list kernels' cases: tests/test_torch_cuda.py INT8_CASES (a
+# vgg16 model leg, the two feature shapes, one value, g not a multiple
+# of 4, a list past the segment cap, an empty list, views off 16 bytes)
+INT8_LIST_CASES = {
+    "vgg16_leg": [(64,), (64,), (3, 3, 3, 64), (64,), (64,),
+                  (3, 3, 64, 64), (128,), (128,), (3, 3, 64, 128)],
+    "features_2048_rows": [(32, 64, 16, 16)],
+    "features_4096_rows": [(32, 128, 16, 16)],
+    "one_value": [(1,)],
+    "g_not_multiple_of_4": [(7,), (3, 85), (2, 129)],
+    "over_segment_cap": [((37 * i) % 600 + 1,) for i in range(70)],
+    "empty": [],
+    "odd_offset_views": [(3, 3, 64, 64), (300,), (1728,)],
+}
+
+
+def at_odd_offset(t):
+    """A contiguous copy of t whose base sits one element past an
+    aligned one."""
+    import torch
+    return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+
+
+def vgg16_leg(dev, split: int):
+    """The leaves a vgg16 model leg sends at ``split``: the client
+    portion's BN scale / shift and conv weights, from the port's model
+    (splits 2 and 3 are the legs of chip_smoke's 2-round run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import SplitModel
+    from repro_torch.utils.tree import get_subtree, tree_flatten
+    model = SplitModel(get_config("vgg16"))
+    params = model.init(0, device=dev)
+    names = model.client_segments(split)
+    return tree_flatten([get_subtree(params, p)
+                         for n, p in model.segments() if n in names])[0]
+
+
 def sparse_inputs(dev, gen):
     import torch
     out = []
@@ -289,6 +340,102 @@ def phase_device(torch, build):
     return smi
 
 
+def check_int8_lists(torch, dev, gen):
+    """Every INT8_LIST_CASES list through the list kernels against the
+    plain per-tensor loop: q, scale, zp and x' bit-equal, one launch a
+    direction per MAX_SEGMENTS tensors."""
+    from repro_torch.kernels.int8_quant import kernel as iq
+    from repro_torch.kernels.int8_quant import ops as iq_ops
+    for name, shapes in INT8_LIST_CASES.items():
+        xs = [(torch.randn(sh, generator=gen) * (0.05 + i % 5)).to(dev)
+              for i, sh in enumerate(shapes)]
+        odd = name == "odd_offset_views"
+        if odd:
+            xs = [at_odd_offset(x) for x in xs]
+        flats = [x.reshape(-1) for x in xs]
+        groups = [iq_ops.group_size(f.numel()) for f in flats]
+        launches = -(-len(flats) // iq.MAX_SEGMENTS)
+        before = dict(iq.LAUNCHES)
+        got = iq.int8_quantize_segments(flats, groups)
+        want = iq.int8_quantize_segments_plain(flats, groups)
+        qs, ss, zs = ([p[i] for p in got] for i in range(3))
+        if odd:
+            qs = [at_odd_offset(q) for q in qs]
+        numels = [f.numel() for f in flats]
+        out = iq.int8_dequantize_segments(qs, ss, zs, numels)
+        ref = iq.int8_dequantize_segments_plain(qs, ss, zs, numels)
+        torch.cuda.synchronize()
+        bad = [i for i, ((q, s, z), (qp, sp, zp)) in enumerate(
+            zip(got, want)) if not (torch.equal(q, qp) and torch.equal(
+                s, sp) and torch.equal(z, zp))]
+        bad += [i for i, (o, r) in enumerate(zip(out, ref))
+                if not torch.equal(o, r)]
+        moved = {k: iq.LAUNCHES[k] - before[k] for k in before}
+        if bad or moved != {"int8_quantize": launches,
+                            "int8_dequantize": launches}:
+            fail(f"int8 list case {name}: tensors {bad} differ from the "
+                 f"plain versions, launches {moved} (want {launches})")
+    return len(INT8_LIST_CASES)
+
+
+def int8_list_bound(flats, groups, quantize: bool):
+    """Bound of one list call: each tensor's values (f32), its rows of
+    int8 and 8 bytes of scale / zp a row, once each; ~7 operations a
+    quantized value, 2 a dequantized one."""
+    from repro_torch.kernels.int8_quant import kernel as iq
+    values = sum(f.numel() for f in flats)
+    rows = [iq.n_rows(f.numel(), g) for f, g in zip(flats, groups)]
+    q_bytes = sum(r * g for r, g in zip(rows, groups))
+    nbytes = values * 4 + q_bytes + 8 * sum(rows)
+    return bound(nbytes, 7 * q_bytes if quantize else 2 * values)
+
+
+def int8_list_rows(torch, dev, gen):
+    """The list kernels timed at the main path's lists: vgg16's model
+    legs at splits 3 (the row's own) and 2, and the feature transfers of
+    (2048, 256) and (4096, 256) rows (lists of one), beside the time of
+    an empty kernel (``torch.cuda._sleep(0)``) in the same harness, the
+    launch floor. -> {kernel name: (kern, plain, shape, bound, extra)}"""
+    from repro_torch.kernels.int8_quant import kernel as iq
+    from repro_torch.kernels.int8_quant import ops as iq_ops
+    lists = {"leg_split3": vgg16_leg(dev, 3), "leg_split2": vgg16_leg(dev, 2)}
+    for r in (2048, 4096):
+        lists[f"features_{r}_rows"] = [
+            (torch.randn(r * 256, generator=gen) * 3.0).to(dev)]
+    floor = {"launch_floor_ms": device_ms(lambda: torch.cuda._sleep(0),
+                                          False, 50)}
+    rows = {}
+    for quantize, name in ((True, "int8_quantize"),
+                           (False, "int8_dequantize")):
+        calls = {}
+        for key, xs in lists.items():
+            flats = [x.reshape(-1) for x in xs]
+            groups = [iq_ops.group_size(f.numel()) for f in flats]
+            qs, ss, zs = zip(*iq.int8_quantize_segments(flats, groups))
+            numels = [f.numel() for f in flats]
+            if quantize:
+                kern = (lambda f=flats, g=groups:
+                        iq.int8_quantize_segments(f, g))
+                plain = (lambda f=flats, g=groups:
+                         iq.int8_quantize_segments_plain(f, g))
+            else:
+                kern = (lambda a=(qs, ss, zs, numels):
+                        iq.int8_dequantize_segments(*a))
+                plain = (lambda a=(qs, ss, zs, numels):
+                         iq.int8_dequantize_segments_plain(*a))
+            shape = [[iq.n_rows(f.numel(), g), g]
+                     for f, g in zip(flats, groups)]
+            calls[key] = (kern, plain, shape,
+                          int8_list_bound(flats, groups, quantize))
+        kern, plain, shape, bnd = calls.pop("leg_split3")
+        also = {key: {"shape": sh, "ms": device_ms(k, True, 50),
+                      "warm_l2_ms": device_ms(k, False, 50),
+                      "bound_ms": b[0]}
+                for key, (k, _, sh, b) in calls.items()}
+        rows[name] = (kern, plain, shape, bnd, {**floor, **also})
+    return rows
+
+
 def phase_kernels(torch, dev):
     from repro_torch.kernels.comm_fused import kernel as cf
     from repro_torch.kernels.int8_quant import kernel as iq
@@ -305,11 +452,13 @@ def phase_kernels(torch, dev):
                  f"{int((s != sp).sum())}, zp {int((z != zp).sum())} "
                  f"values")
         d = iq.int8_dequantize_rows(q, s, z)
-        err = float((d - iq.int8_dequantize_plain(q, s, z)).abs().max())
-        worst["int8_dequantize"] = max(worst["int8_dequantize"], err)
+        if not torch.equal(d, iq.int8_dequantize_plain(q, s, z)):
+            fail(f"int8_dequantize differs from its plain version at "
+                 f"{tuple(x.shape)}")
         rt = cf.int8_roundtrip(x)
         err = float((rt - cf.int8_roundtrip_plain(x)).abs().max())
         worst["int8_roundtrip"] = max(worst["int8_roundtrip"], err)
+    n_lists = check_int8_lists(torch, dev, gen)
     for y, mask, scale in sparse_inputs(dev, gen):
         out, res = cf.sparse_combine(y, mask, scale)
         op, rp = cf.sparse_combine_plain(y, mask, scale)
@@ -320,34 +469,27 @@ def phase_kernels(torch, dev):
     for name, err in worst.items():
         if not err <= TOL:
             fail(f"{name} differs from its plain version by {err}")
+    emit("int8_lists", cases=n_lists, bit_equal=True)
 
-    # times at the main path's shapes (vgg16, batch 32, split 2: 2048
-    # group rows per device, a 4-device cohort on the fused path)
-    x = (torch.randn(2048, 256, generator=gen) * 3.0).to(dev)
+    # times at the main path's shapes: the int8 pair at its lists; the
+    # fused kernels at a 4-device cohort (vgg16, batch 32, split 2: 2048
+    # group rows per device)
     xc = (torch.randn(8192, 256, generator=gen) * 3.0).to(dev)
     y, mask, scale = sparse_inputs(dev, gen)[3]
-    q, s, z = iq.int8_quantize_rows(x)
-    n, nc, ns = x.numel(), xc.numel(), y.numel()
-    rows = {
-        "int8_quantize": (
-            lambda: iq.int8_quantize_rows(x),
-            lambda: iq.int8_quantize_plain(x), (2048, 256),
-            bound(n * 5 + 2048 * 8, n * 7), "int8_quantize_pallas"),
-        "int8_dequantize": (
-            lambda: iq.int8_dequantize_rows(q, s, z),
-            lambda: iq.int8_dequantize_plain(q, s, z), (2048, 256),
-            bound(n * 5 + 2048 * 8, n * 2), "int8_dequantize_pallas"),
+    nc, ns = xc.numel(), y.numel()
+    rows = int8_list_rows(torch, dev, gen)
+    rows.update({
         "int8_roundtrip": (
             lambda: cf.int8_roundtrip(xc),
             lambda: cf.int8_roundtrip_plain(xc), (8192, 256),
-            bound(nc * 8, nc * 9), "int8_roundtrip_pallas"),
+            bound(nc * 8, nc * 9), {}),
         "sparse_combine": (
             lambda: cf.sparse_combine(y, mask, scale),
             lambda: cf.sparse_combine_plain(y, mask, scale), (4, 524288),
-            bound(ns * 16 + 4, ns * 3), "sparse_combine_pallas"),
-    }
+            bound(ns * 16 + 4, ns * 3), {}),
+    })
     timed = {}
-    for name, (kern, plain, shape, (b_ms, b_by), _) in rows.items():
+    for name, (kern, plain, shape, (b_ms, b_by), also) in rows.items():
         # plain, kernel, kernel, plain: the two versions in turns
         p1, k1, k2, p2 = (device_ms(plain, True, 50),
                           device_ms(kern, True, 50),
@@ -360,12 +502,68 @@ def phase_kernels(torch, dev):
         timed[name] = {"shape": list(shape), "ms": min(k1, k2),
                        "plain_ms": min(p1, p2), "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": None,
-                       "max_abs_err": worst[name]}
+                       "max_abs_err": worst[name], "warm_l2_ms": warm_k,
+                       **also}
         emit("kernel", name=name, **timed[name], device_ms_runs=[k1, k2],
-             plain_device_ms_runs=[p1, p2], warm_l2_ms=warm_k,
-             plain_warm_l2_ms=warm_p, call_ms_runs=[c_k1, c_k2],
-             plain_call_ms_runs=[c_p1, c_p2])
+             plain_device_ms_runs=[p1, p2], plain_warm_l2_ms=warm_p,
+             call_ms_runs=[c_k1, c_k2], plain_call_ms_runs=[c_p1, c_p2])
     return timed
+
+
+def phase_int8_legs(torch, dev):
+    """One vgg16 model leg (splits 2 and 3) through the int8 codec side
+    by side in one run: the per-leaf loop of list-of-one round trips
+    (``Int8Codec.roundtrip``, two launches a leaf) against one
+    ``roundtrip_many`` (two launches a leg). Device time per leg cold
+    and warm (the spin-queued harness), the host's wall per leg
+    (synchronised, no spin, 200 legs), in turns (loop, list, list,
+    loop); both give the same tensors and bytes."""
+    from repro_torch.comm.codecs import Int8Codec
+    from repro_torch.kernels.int8_quant import kernel as iq
+    from repro_torch.kernels.int8_quant.ops import group_size
+    codec = Int8Codec()
+
+    def wall_ms(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out = {}
+    for split in (2, 3):
+        leg = vgg16_leg(dev, split)
+        loop = lambda leg=leg: [codec.roundtrip(x) for x in leg]
+        listed = lambda leg=leg: codec.roundtrip_many(leg)
+        res, launches = {}, {}
+        for key, fn in (("per_leaf", loop), ("list", listed)):
+            before = iq.LAUNCHES["int8_quantize"]
+            res[key] = fn()
+            launches[key] = iq.LAUNCHES["int8_quantize"] - before
+        if not all(torch.equal(ya, yb) and na == nb for (ya, na), (yb, nb)
+                   in zip(res["per_leaf"], res["list"])):
+            fail(f"int8 leg split {split}: the list call differs from "
+                 f"the per-leaf loop")
+        cold = [device_ms(f, True, 50) for f in (loop, listed, listed, loop)]
+        warm = [device_ms(f, False, 50)
+                for f in (loop, listed, listed, loop)]
+        wall = [wall_ms(f) for f in (loop, listed, listed, loop)]
+        out[f"split{split}"] = {
+            "leaves": len(leg), "values": sum(x.numel() for x in leg),
+            "rows": sum(iq.n_rows(x.numel(), group_size(x.numel()))
+                        for x in leg),
+            "quantize_launches": launches,
+            "device_ms": {"per_leaf": min(cold[0], cold[3]),
+                          "list": min(cold[1], cold[2])},
+            "warm_device_ms": {"per_leaf": min(warm[0], warm[3]),
+                               "list": min(warm[1], warm[2])},
+            "host_wall_ms": {"per_leaf": min(wall[0], wall[3]),
+                             "list": min(wall[1], wall[2])},
+            "runs": {"device_ms": cold, "warm_device_ms": warm,
+                     "host_wall_ms": wall}}
+    emit("int8_leg_side_by_side", **out)
 
 
 def _counters():
@@ -404,7 +602,10 @@ VGG = ["--arch", "vgg16", "--rounds", "2", "--clients", "8",
        "--alpha", "0.5", "--eval-every", "1000", "--seed", "0"]
 
 
-def phase_train(torch, tmp, tag, extra, need):
+def phase_train(torch, tmp, tag, extra, need, exact=None):
+    """One 2-round vgg16 run; every kernel of ``need`` must launch, and
+    ``exact`` (launch counts, and ``clock`` / ``comm``) must be met
+    exactly."""
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -420,10 +621,60 @@ def phase_train(torch, tmp, tag, extra, need):
     for k in need:
         if counts[k] <= 0:
             fail(f"{tag}: kernel {k} was never launched ({counts})")
+    got = {**counts, "clock": res["clock"], "comm": res["comm"]}
+    for k, want in (exact or {}).items():
+        if got[k] != want:
+            fail(f"{tag}: {k} is {got[k]}, want exactly {want}")
     emit(tag, args=extra, launches=counts, losses=losses,
          eval=res["final"], clock=res["clock"], comm=res["comm"],
          wall_s=wall)
     return counts
+
+
+# kernel groups of a training profile, by name: the port's batch norm
+# is plain PyTorch (models/cnn.py), so its statistics are reduce kernels
+TRAIN_GROUPS = (
+    ("int8_kernels", ("quantize",)),
+    ("cudnn_conv", ("cudnn", "conv", "xmma", "implicit", "wgrad",
+                    "dgrad")),
+    ("reductions", ("reduce_kernel",)),
+    ("gemm", ("gemm", "cutlass", "nvjet")),
+    ("copies", ("memcpy", "memset", "copy")),
+)
+
+
+def phase_train_profile(torch, tmp, extra):
+    """The train_int8 run again under the profiler: device ms by kernel
+    group (the int8 list kernels, cuDNN's convolutions, reductions (the
+    batch-norm statistics among them), GEMMs, copies and memsets, the
+    other elementwise kernels) over the whole run, set-up included,
+    beside its host-clock wall, and the share of it the card was
+    idle."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run_train([*VGG, "--device", "cuda", *extra], tmp, "train_profile")
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
+    groups["elementwise"] = 0.0
+    launches = dict.fromkeys(groups, 0)
+    for e in events:
+        low = e.key.lower()
+        g = next((g for g, keys in TRAIN_GROUPS
+                  if any(k in low for k in keys)), "elementwise")
+        groups[g] += e.self_device_time_total / 1e3
+        launches[g] += e.count
+    busy = sum(groups.values())
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    emit("train_int8_profile", device_ms_by_group=groups,
+         launches_by_group=launches, device_busy_ms=busy, wall_ms=wall_ms,
+         idle_share=max(0.0, 1.0 - busy / wall_ms),
+         kernels_seen=len(events),
+         top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3,
+                          e.count] for e in top])
 
 
 def phase_parity(tmp):
@@ -1117,12 +1368,18 @@ def main() -> int:
 
     smi = phase_device(torch, _build)
     timed = phase_kernels(torch, dev)
+    phase_int8_legs(torch, dev)
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
-        seq = phase_train(torch, tmp, "train_int8",
-                          ["--codec", "int8", "--dispatch-codec", "int8",
-                           "--error-feedback"],
-                          ["int8_quantize", "int8_dequantize"])
+        # 16 model legs (8 client-rounds, a dispatch and a collect
+        # each) and 16 feature transfers: one launch a direction each
+        int8_args = ["--codec", "int8", "--dispatch-codec", "int8",
+                     "--error-feedback"]
+        seq = phase_train(torch, tmp, "train_int8", int8_args,
+                          ["int8_quantize", "int8_dequantize"],
+                          {"int8_quantize": 32, "int8_dequantize": 32,
+                           "clock": 5.61946362688, "comm": 14229056.0})
+        phase_train_profile(torch, tmp, int8_args)
         f_int8 = phase_train(torch, tmp, "fused_int8",
                              ["--fused-comm", "--codec", "int8",
                               "--error-feedback"], ["int8_roundtrip"])
@@ -1174,6 +1431,10 @@ def main() -> int:
                 "decode": timed["moe_gmm_decode"]},
             "ssd_scan": {"launches_by_path": {
                 p: served[f"ssd_scan_{p}"] for p in ssd_paths()}}}
+    for k in ("int8_quantize", "int8_dequantize"):
+        also[k] = {key: v for key, v in timed[k].items()
+                   if key.startswith(("leg_", "features_", "launch_floor",
+                                      "warm_l2"))}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k],
                 "launches": main_path[k],

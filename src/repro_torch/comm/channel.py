@@ -151,14 +151,24 @@ class CommChannel:
         before the NEXT transfer's encode. Without error feedback —
         or for lossless fp32, whose residual is identically zero — this
         is a plain round-trip."""
+        return self._ef_roundtrip_many(codec, [key], [x])[0]
+
+    def _ef_roundtrip_many(self, codec, keys, xs):
+        """``_ef_roundtrip`` of each (key, tensor) pair, through one
+        ``codec.roundtrip_many`` call: every residual is added first,
+        then the list crosses, then every residual is stored."""
         if not self.error_feedback or codec.name == "fp32":
-            return codec.roundtrip(x)
-        r = self._residuals.get(key)
-        if r is not None and r.shape == x.shape:
-            x = x + r.to(x.dtype)
-        y, nbytes = codec.roundtrip(x)
-        self._residuals[key] = x - y
-        return y, nbytes
+            return codec.roundtrip_many(xs)
+        sent = []
+        for key, x in zip(keys, xs):
+            r = self._residuals.get(key)
+            if r is not None and r.shape == x.shape:
+                x = x + r.to(x.dtype)
+            sent.append(x)
+        out = codec.roundtrip_many(sent)
+        for key, x, (y, _) in zip(keys, sent, out):
+            self._residuals[key] = x - y
+        return out
 
     def residual_norm(self) -> float:
         """Total L2 mass currently held by the feedback accumulators
@@ -443,12 +453,12 @@ class CommChannel:
     def _model_leg(self, cid, leaves, direction, meter):
         if self.dispatch_passthrough:
             return list(leaves)
-        out = []
+        results = self._ef_roundtrip_many(
+            self.dispatch_codec,
+            [(direction, cid, i) for i in range(len(leaves))], leaves)
+        out = [y for y, _ in results]
         nbytes = 0.0
-        for i, x in enumerate(leaves):
-            y, b = self._ef_roundtrip(self.dispatch_codec,
-                                      (direction, cid, i), x)
-            out.append(y)
+        for _, b in results:
             nbytes += b
         meter[cid] = meter.get(cid, 0.0) + nbytes
         if direction == "disp_down":

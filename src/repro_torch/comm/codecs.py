@@ -20,8 +20,9 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels.int8_quant import (GROUP, int8_dequantize,
-                                            int8_quantize)
+from repro_torch.kernels.int8_quant import (group_size,
+                                            int8_dequantize_many,
+                                            int8_quantize_many)
 
 
 class Codec:
@@ -43,6 +44,10 @@ class Codec:
         """The tensor the receiver sees, plus exact wire bytes."""
         payload, nbytes = self.encode(x)
         return self.decode(payload, dtype=x.dtype), nbytes
+
+    def roundtrip_many(self, xs):
+        """``roundtrip`` of each tensor in order: [(y, wire_bytes)]."""
+        return [self.roundtrip(x) for x in xs]
 
     def estimate_bytes(self, n_values: float, last_dim: int = 0) -> float:
         """Analytic wire size for n_values elements (used by the Eq.-1
@@ -83,28 +88,38 @@ class CastCodec(Codec):
 class Int8Codec(Codec):
     """Group-wise affine int8 via the kernel pair
     (repro_torch.kernels.int8_quant): 1 byte/value + 8 bytes per group of
-    GROUP values (fp32 scale + zero point), ~3% metadata."""
+    GROUP values (fp32 scale + zero point), ~3% metadata.
+    ``roundtrip_many`` sends a list of tensors through one quantize and
+    one dequantize launch."""
     name = "int8"
     bytes_per_value = 1.0
     row_overhead_bytes = 8.0
 
-    def encode(self, x):
-        q, scale, zp, shape = int8_quantize(x)
+    def _nbytes(self, q) -> float:
         # the edge-padded tail group crosses the wire too — count it
-        nbytes = float(q.numel()) * self.bytes_per_value \
+        return float(q.numel()) * self.bytes_per_value \
             + float(q.shape[0]) * self.row_overhead_bytes
-        return (q, scale, zp, shape), nbytes
+
+    def encode(self, x):
+        payload = int8_quantize_many([x])[0]
+        return payload, self._nbytes(payload[0])
 
     def decode(self, payload, dtype=torch.float32):
-        q, scale, zp, shape = payload
-        return int8_dequantize(q, scale, zp, shape, dtype=dtype)
+        return int8_dequantize_many([payload], dtype=dtype)[0]
+
+    def roundtrip_many(self, xs):
+        xs = list(xs)
+        payloads = int8_quantize_many(xs)
+        ys = int8_dequantize_many(payloads)
+        return [(y.to(x.dtype), self._nbytes(p[0]))
+                for x, y, p in zip(xs, ys, payloads)]
 
     def estimate_bytes(self, n_values: float, last_dim: int = 0) -> float:
         if not n_values:
             return 0.0
-        # mirror _as_groups: tensors smaller than GROUP use one
-        # tensor-sized group, not a full padded one
-        g = min(GROUP, int(n_values))
+        # mirror the kernels' grouping: tensors smaller than GROUP use
+        # one tensor-sized group, not a full padded one
+        g = group_size(int(n_values))
         groups = math.ceil(n_values / g)
         return groups * (g * self.bytes_per_value
                          + self.row_overhead_bytes)

@@ -23,7 +23,7 @@ from repro_torch.kernels.int8_quant.ops import GROUP
 def _as_group_rows(x2, group: int):
     """(D, N) -> (D * R, g) group rows, row-major so each device's
     values stay consecutive; per-row edge padding mirrors
-    int8_quant.ops._as_groups per device (zero-padding would drag the
+    int8_quant.kernel.edge_padded_rows per device (zero-padding would drag the
     tail group's min/max toward 0)."""
     d, n = x2.shape
     g = max(1, min(group, n))

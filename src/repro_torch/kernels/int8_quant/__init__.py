@@ -1,2 +1,3 @@
 from repro_torch.kernels.int8_quant.ops import (  # noqa: F401
-    GROUP, int8_dequantize, int8_quantize)
+    GROUP, group_size, int8_dequantize, int8_dequantize_many, int8_quantize,
+    int8_quantize_many)

@@ -20,6 +20,7 @@ launches, ``LAUNCHES["ssd_scan_<path>"]`` those of each path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -46,9 +47,33 @@ def _lib():
 
 
 # ----------------------------------------------------------- plain version
+@contextlib.contextmanager
+def _one_cpu_thread(device):
+    """Run the block on one CPU thread (no-op for a card's tensors).
+
+    On the CPU, ``torch.exp`` of float32 splits a tensor of more than
+    2048 values into 2048-value chunks over the intra-op threads, and each
+    chunk goes through MKL's vector math (``vmsExp``, high-accuracy
+    mode). In about one process in 100 to 300 (CPU PyTorch 2.13.0, MKL
+    2024.2, 8 threads), the first such call that runs on several threads
+    at once returns worker-thread chunks with ~1.5e-4 relative error, the
+    accuracy of a lower-accuracy exp; the main thread's chunk and every
+    later call are right. On one thread the call is never concurrent."""
+    if device.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
     """x (b,s,h,p), dt (b,s,h), A (h,), B/C (b,s,n), initial_state
-    (b,h,p,n) or None -> (y (b,s,h,p), final_state (b,h,p,n))."""
+    (b,h,p,n) or None -> (y (b,s,h,p), final_state (b,h,p,n)). Every
+    exp runs on one CPU thread (``_one_cpu_thread``)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc, l = s // chunk, chunk
@@ -66,17 +91,21 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
         xi, dti, Bi, Ci = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
         cs = torch.cumsum(dti * A, dim=1)                  # (b,l,h)
         seg = cs[:, :, None, :] - cs[:, None, :, :]         # (b,i,j,h)
-        L = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        with _one_cpu_thread(x.device):
+            exp_seg, exp_cs = torch.exp(seg), torch.exp(cs)
+            exp_tail = torch.exp(cs[:, -1:] - cs)
+            exp_last = torch.exp(cs[:, -1])
+        L = torch.where(tri[None, :, :, None], exp_seg, 0.0)
         scores = torch.einsum("bin,bjn->bij", Ci, Bi)
         W = L * scores[..., None]
         y = torch.einsum("bijh,bjhp->bihp", W, xi * dti[..., None])
         y_off = torch.einsum("bin,bhpn->bihp", Ci, state)
-        y = y + y_off * torch.exp(cs)[..., None]
+        y = y + y_off * exp_cs[..., None]
         ys.append(y)
-        tail = torch.exp(cs[:, -1:] - cs) * dti              # (b,l,h)
+        tail = exp_tail * dti                                # (b,l,h)
         upd = torch.einsum("bjhp,bjhn->bhpn", xi,
                            Bi[:, :, None, :] * tail[..., None])
-        state = state * torch.exp(cs[:, -1])[..., None, None] + upd
+        state = state * exp_last[..., None, None] + upd
     y = torch.stack(ys, dim=1).reshape(b, s, h, p)
     return y.to(x.dtype), state.to(x.dtype)
 

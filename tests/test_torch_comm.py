@@ -19,6 +19,7 @@ from repro.configs.base import CommConfig as RefCommConfig
 from repro_torch.comm import make_channel
 from repro_torch.comm.codecs import get_codec
 from repro_torch.configs import CommConfig
+from repro_torch.kernels.int8_quant import ops as tiq_ops
 
 TOL = 1e-6
 CODECS = ["fp32", "bf16", "fp16", "int8", "topk", "randk"]
@@ -230,3 +231,49 @@ def test_residual_quarantine_matches_reference():
     assert tch.residual_elements_of(0) == rch.residual_elements_of(0)
     assert tch.residual_norm_of(0) == pytest.approx(
         rch.residual_norm_of(0), rel=1e-5)
+
+
+# vgg16's client portion at split 3 (BN scale / shift and conv weights)
+VGG_LEAVES = [(64,), (64,), (3, 3, 3, 64), (64,), (64,), (3, 3, 64, 64),
+              (128,), (128,), (3, 3, 64, 128)]
+
+
+def test_model_legs_one_list_call_match_reference_per_leaf(monkeypatch):
+    """Each int8 model leg goes through one quantize and one dequantize
+    list call (one launch each on the card) and gives what the
+    reference's per-leaf loop gives, over three rounds with error
+    feedback: bytes exact, delivered tensors and residuals within the
+    tolerance above, the same per-leaf residual keys."""
+    calls = {"q": [], "d": []}
+    for key, name in (("q", "int8_quantize_segments"),
+                      ("d", "int8_dequantize_segments")):
+        fn = getattr(tiq_ops, name)
+
+        def counted(*a, _fn=fn, _key=key):
+            calls[_key].append(len(a[0]))
+            return _fn(*a)
+        monkeypatch.setattr(tiq_ops, name, counted)
+    rch, tch = _pair(codec="int8", dispatch_codec="int8",
+                     error_feedback=True)
+    sent = []
+    for rnd in range(3):
+        rch.reset_round()
+        tch.reset_round()
+        for c in (0, 1):
+            leaves = [_np(s, 1000 * rnd + 20 * c + i, 0.1)
+                      for i, s in enumerate(VGG_LEAVES)]
+            sent += leaves
+            for leg in ("dispatch_leaves", "collect_leaves"):
+                n = len(calls["q"])
+                t_out = getattr(tch, leg)(c, [torch.from_numpy(x)
+                                              for x in leaves])
+                assert calls["q"][n:] == calls["d"][n:] == [len(leaves)]
+                r_out = getattr(rch, leg)(c, [jnp.asarray(x)
+                                              for x in leaves])
+                assert len(t_out) == len(r_out) == len(leaves)
+                for a, b in zip(t_out, r_out):
+                    assert tuple(a.shape) == tuple(b.shape)
+                    _close(a, b, f"{leg} {rnd} {c}")
+            assert tch.round_dispatch_split(c) == rch.round_dispatch_split(c)
+    assert len(tch._residuals) == 2 * 2 * len(VGG_LEAVES)
+    _assert_same_state(rch, tch, max(float(np.abs(a).max()) for a in sent))

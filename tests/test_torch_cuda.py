@@ -1,4 +1,5 @@
-"""The port's LM kernels against their plain versions, on the card.
+"""The port's LM kernels and its int8 list kernels against their plain
+versions, on the card.
 
 Imports torch and the port only (the card's machine has no JAX, and
 this file needs no conftest), so it runs there as
@@ -10,7 +11,8 @@ and skips everywhere else: a CUDA kernel has no CPU mode. Tolerances
 are the reference's kernel tolerances (tests/test_kernels.py): flash
 atol 2e-5 in f32 and 2e-2 in bf16; ssd (atol 2e-4, rtol 1e-5) in f32
 and (0.1, 3e-2) in bf16; moe_gmm atol 1e-5 with an f32 output and 2e-2
-with a bf16 one."""
+with a bf16 one; the int8 quantize / dequantize pair bit-equal (q, scale,
+zp and the dequantized values)."""
 import math
 
 import pytest
@@ -18,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.int8_quant import kernel as iq
+from repro_torch.kernels.int8_quant import ops as iq_ops
 from repro_torch.kernels.moe_gmm import kernel as gmm
 from repro_torch.kernels.ssd_scan import kernel as ssd
 
@@ -314,3 +318,66 @@ def test_moe_gmm_paths_match_plain(card, E, C, d, F, act, shift, path):
         x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(E, C, d)
         assert x.data_ptr() % 16 != 0 and x.is_contiguous()
     _gmm_matches_plain(x, wg, wu, wd, act, path)
+
+
+# the int8 list kernels: the cases of tests/test_torch_kernels.py
+# (MANY_CASES: a vgg16 model leg, the two feature shapes, one value, g
+# not a multiple of 4, a list past the segment cap, an empty list) and
+# tensors that are views off 16 bytes (x) and off 4 bytes (q)
+INT8_CASES = {
+    "vgg16_leg": [(64,), (64,), (3, 3, 3, 64), (64,), (64,),
+                  (3, 3, 64, 64), (128,), (128,), (3, 3, 64, 128)],
+    "features_2048_rows": [(32, 64, 16, 16)],
+    "features_4096_rows": [(32, 128, 16, 16)],
+    "one_value": [(1,)],
+    "g_not_multiple_of_4": [(7,), (3, 85), (2, 129)],
+    "over_segment_cap": [((37 * i) % 600 + 1,)
+                         for i in range(iq.MAX_SEGMENTS + 6)],
+    "empty": [],
+    "odd_offset_views": [(3, 3, 64, 64), (300,), (1728,)],
+}
+
+
+def _at_odd_offset(t):
+    """A contiguous copy of t whose base sits one element past an
+    aligned one."""
+    flat = torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+    return flat.view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(INT8_CASES))
+def test_int8_segments_match_plain(card, name):
+    g = torch.Generator().manual_seed(len(name))
+    xs = [(torch.randn(s, generator=g) * (0.05 + 3 * i / 7)).to(card)
+          for i, s in enumerate(INT8_CASES[name])]
+    odd = name == "odd_offset_views"
+    if odd:
+        xs = [_at_odd_offset(x) for x in xs]
+        assert all(x.data_ptr() % 16 for x in xs)
+    flats = [x.reshape(-1) for x in xs]
+    groups = [iq_ops.group_size(f.numel()) for f in flats]
+    launches = -(-len(flats) // iq.MAX_SEGMENTS)
+    before = dict(iq.LAUNCHES)
+    got = iq.int8_quantize_segments(flats, groups)
+    want = iq.int8_quantize_segments_plain(flats, groups)
+    torch.cuda.synchronize()
+    assert iq.LAUNCHES["int8_quantize"] - before["int8_quantize"] \
+        == launches
+    assert len(got) == len(want) == len(xs)
+    for (q, s, z), (qp, sp, zp) in zip(got, want):
+        assert q.shape == qp.shape and s.shape == sp.shape
+        assert torch.equal(q, qp) and torch.equal(s, sp) \
+            and torch.equal(z, zp)
+    qs, ss, zs = ([p[i] for p in got] for i in range(3))
+    if odd:                    # q off 4 bytes: the per-value path
+        qs = [_at_odd_offset(q) for q in qs]
+        assert all(q.data_ptr() % 4 for q in qs)
+    numels = [f.numel() for f in flats]
+    out = iq.int8_dequantize_segments(qs, ss, zs, numels)
+    ref = iq.int8_dequantize_segments_plain(qs, ss, zs, numels)
+    torch.cuda.synchronize()
+    assert iq.LAUNCHES["int8_dequantize"] - before["int8_dequantize"] \
+        == launches
+    for o, r, n in zip(out, ref, numels):
+        assert o.shape == (n,) and torch.equal(o, r)

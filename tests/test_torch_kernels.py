@@ -143,6 +143,67 @@ def test_public_int8_ops_match_reference(shape):
     np.testing.assert_allclose(d.numpy(), np.asarray(d_r), atol=TOL)
 
 
+# Lists for the list API. vgg16's model legs send the client portion's
+# leaves (at split 3: BN scale / shift of 64 and 128, conv weights of
+# 1728, 36864 and 73728 values, i.e. group rows (1, 64), (7, 256),
+# (144, 256), (1, 128) and (288, 256)); a feature transfer is a list of
+# one, (2048, 256) or (4096, 256) rows.
+VGG_LEG = [(64,), (64,), (3, 3, 3, 64), (64,), (64,), (3, 3, 64, 64),
+           (128,), (128,), (3, 3, 64, 128)]
+MANY_CASES = {
+    "vgg16_leg": VGG_LEG,
+    "features_2048_rows": [(32, 64, 16, 16)],
+    "features_4096_rows": [(32, 128, 16, 16)],
+    "one_value": [(1,)],
+    "g_not_multiple_of_4": [(7,), (3, 85), (2, 129)],
+    # past the segment cap: two launches on the card
+    "over_segment_cap": [((37 * i) % 600 + 1,)
+                         for i in range(tiq.MAX_SEGMENTS + 6)],
+    "empty": [],
+}
+
+
+def _leaves(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=s) * rng.uniform(0.01, 3.0)).astype(np.float32)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("name", list(MANY_CASES))
+def test_int8_many_bit_equal_to_reference_per_leaf(name):
+    """The list API (one launch per list on the card; on the CPU the
+    per-leaf loop of the plain versions) against the reference's public
+    ops applied leaf by leaf: q, scale, zp and the dequantized tensor
+    bit-equal, shapes and grouping the reference's."""
+    xs = _leaves(MANY_CASES[name], len(name))
+    payloads = tiq_ops.int8_quantize_many([torch.from_numpy(x) for x in xs])
+    ys = tiq_ops.int8_dequantize_many(payloads)
+    assert len(payloads) == len(ys) == len(xs)
+    for x, (q, s, z, shp), y in zip(xs, payloads, ys):
+        q_r, s_r, z_r, shp_r = ref_int8_ops.int8_quantize(jnp.asarray(x))
+        assert shp == tuple(shp_r)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(q_r))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+        np.testing.assert_array_equal(z.numpy(), np.asarray(z_r))
+        y_r = ref_int8_ops.int8_dequantize(q_r, s_r, z_r, shp_r)
+        assert y.dtype == torch.float32
+        np.testing.assert_array_equal(y.numpy(), np.asarray(y_r))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_list_buffers_keep_each_tensor_on_16_bytes(dtype):
+    """On the card a list's outputs are cut from one buffer: each
+    tensor starts on 16 bytes, so the kernels' vector loads and stores
+    stay on the vector path, and no two overlap."""
+    sizes = [1, 64, 1728, 7, 0, 255, 36864]
+    parts = tiq._buffer(sizes, dtype, "cpu")
+    assert [p.numel() for p in parts] == sizes
+    assert all(p.data_ptr() % 16 == 0 for p in parts)
+    spans = sorted((p.data_ptr(), p.data_ptr() + p.numel() * p.element_size())
+                   for p in parts)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
 @pytest.mark.parametrize("d,n", [(1, 1), (3, 7), (4, 300), (2, 1000)])
 def test_fused_ops_match_reference(d, n):
     rng = np.random.default_rng(7 * d + n)
@@ -180,6 +241,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tiq.int8_quantize_rows(torch.zeros((2, 4), device="meta"))
     with pytest.raises(ValueError):
         tcf.sparse_combine(torch.zeros((2, 4)), torch.zeros((2, 5)), 1.0)
+    with pytest.raises(ValueError):             # one group size a tensor
+        tiq.int8_quantize_segments([torch.zeros(4)], [])
+    with pytest.raises(ValueError):             # 1-D tensors only
+        tiq.int8_quantize_segments([torch.zeros((2, 4))], [4])
+    with pytest.raises(ValueError):             # all on one device
+        tiq.int8_quantize_segments([torch.zeros(4),
+                                    torch.zeros(4, device="meta")], [4, 4])
+    q, s, z = tiq.int8_quantize_rows(torch.ones((2, 4)))
+    with pytest.raises(ValueError):             # 9 values, 2 rows of 4
+        tiq.int8_dequantize_segments([q], [s], [z], [9])
 
 
 @pytest.mark.cuda

@@ -71,6 +71,24 @@ def test_plain_matches_pallas(b, s, h, p, n, chunk, dtype):
                                atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("threads", [1, 3])
+def test_plain_is_the_same_bytes_on_any_thread_count(threads):
+    """The plain version runs its exps on one CPU thread (the first
+    concurrent call of MKL's vector math can return a worker thread's
+    chunk at ~1e-4 relative error): its result is the same bytes
+    whatever the intra-op thread count, which it leaves as it was."""
+    args = [torch.from_numpy(a) for a in _inputs(2, 128, 4, 16, 8)]
+    want = ssd.ssd_scan_plain(*args[:5], chunk=32, initial_state=args[5])
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = ssd.ssd_scan_plain(*args[:5], chunk=32, initial_state=args[5])
+        assert torch.get_num_threads() == threads
+    finally:
+        torch.set_num_threads(n)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("with_init", [False, True])
 def test_model_oracle_matches_reference(with_init):
     x, dt, A, B, C, init = _inputs(2, 96, 4, 16, 8, seed=1)
