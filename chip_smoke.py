@@ -36,6 +36,34 @@ non-zero exit:
 5. parity   the resnet8 reference config with the int8 codec on the
             card and on the CPU: simulated clock and wire bytes exactly
             equal, per-round losses within 1e-3.
+5a. train_fused_server  vgg16 at full width on the fused int8 cohort
+            path (``--fused-comm --codec int8 --error-feedback``),
+            without and then with ``--fused-server``: the multi-group
+            server step must batch (calls and groups counted by wrapping
+            the engine's ``_multi_server_step``, no counter in the
+            engine), with clock, comm, splits and the int8_roundtrip
+            launches exactly those of the sequential server path and
+            losses within 1e-3; the host wall of each round of both.
+5b. train_service  vgg16 at full width, 3 rounds, int8 with error
+            feedback, churn (``--fault-kill-prob 0.25``), a snapshot
+            every round, a trace and a metrics stream, on the phase
+            timeline (``--pipeline``: the trace's flights need it):
+            straight twice, then resumed from the first run's round-1
+            snapshot. History (losses aside), splits, clock, comm and
+            the dispatched / committed / abandoned ledger exactly equal;
+            the resumed run's int8 launches those of the straight run's
+            rounds 2-3; whether the straight runs' params agree bitwise
+            (if they do, the resumed run's must; if not, it must be no
+            further from the first straight run than the second is);
+            the trace must load and hold flights, the metrics file 4
+            records. Prints each snapshot's host wall.
+5c. parity_control  the resnet8 reference config with the int8 codec,
+            6 rounds, under ``--exec-mode semi_async --resource-aware
+            --scheduler joint --auto-knobs --fleet-size 100000
+            --clusters 4 --fault-kill-prob 0.2``, on the card and on the
+            CPU: clock, comm, splits, the ledger and the knob
+            controller's lock and rejections exactly equal, losses
+            within 1e-3.
 6. lm_kernels  flash attention, the SSD scan and moe_gmm against their
             plain versions on the card (flash, f32 and bf16: the zamba2
             and deepseek MLA serving shapes, GQA with a window, D = 120,
@@ -694,6 +722,266 @@ def phase_parity(tmp):
         fail(f"parity: losses differ by {dl}: {lg} vs {lc}")
     emit("parity", clock=gpu["clock"], comm=gpu["comm"], losses_cuda=lg,
          losses_cpu=lc, max_loss_diff=dl)
+
+
+# ----------------------------- slice 8: the trainer's other modules
+class Capture:
+    """While active, wraps three methods of the port at class level (no
+    counter is added to the port): ``S2FLEngine.run_round`` (the engine,
+    each round's host wall and the launch counts after it),
+    ``RoundDriver.run_round`` (each round's splits), and
+    ``S2FLEngine._multi_server_step`` (each batched server call and the
+    groups it stacked); and the trainer's ``save_run_state`` (each
+    snapshot's host wall)."""
+
+    def __enter__(self):
+        import repro_torch.checkpoint as ck
+        from repro_torch.core.driver import RoundDriver
+        from repro_torch.core.engine import S2FLEngine
+        from repro_torch.utils.tree import tree_leaves
+        import torch
+        self.engines, self.round_s, self.after_round = [], [], []
+        self.splits, self.multi, self.snapshot_ms = [], [], []
+        self._saved = [(S2FLEngine, "run_round"), (RoundDriver, "run_round"),
+                       (S2FLEngine, "_multi_server_step"),
+                       (ck, "save_run_state")]
+        self._saved = [(o, n, getattr(o, n)) for o, n in self._saved]
+        eng_round, drv_round, multi, save = (f for _, _, f in self._saved)
+
+        def run_round(eng):
+            if not self.engines or self.engines[-1] is not eng:
+                self.engines.append(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = eng_round(eng)
+            torch.cuda.synchronize()
+            self.round_s.append(time.perf_counter() - t0)
+            self.after_round.append(launches())
+            return rec
+
+        def driver_round(drv, *a, **kw):
+            rec = drv_round(drv, *a, **kw)
+            self.splits.append({int(c): int(s)
+                                for c, s in rec.splits.items()})
+            return rec
+
+        def multi_step(eng, gsplits, sp, *a):
+            self.multi.append(int(tree_leaves(sp)[0].shape[0]))
+            return multi(eng, gsplits, sp, *a)
+
+        def save_run_state(path, eng):
+            t0 = time.perf_counter()
+            save(path, eng)
+            self.snapshot_ms.append((time.perf_counter() - t0) * 1e3)
+
+        S2FLEngine.run_round = run_round
+        RoundDriver.run_round = driver_round
+        S2FLEngine._multi_server_step = multi_step
+        ck.save_run_state = save_run_state
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+        return False
+
+
+FUSED_INT8 = ["--fused-comm", "--codec", "int8", "--error-feedback"]
+
+
+def phase_train_fused_server(torch, tmp):
+    """vgg16 at full width, fused int8 cohort path, without and then
+    with ``--fused-server``: the multi-group server step must batch (more
+    than 0 calls of 2+ groups), with clock, comm and the int8_roundtrip
+    launches exactly those of the sequential server path and losses
+    within 1e-3."""
+    runs = {}
+    for tag, extra in (("sequential", FUSED_INT8),
+                       ("fused_server", [*FUSED_INT8, "--fused-server"])):
+        reset_launches()
+        with Capture() as cap:
+            res = run_train([*VGG, "--device", "cuda", *extra], tmp,
+                            f"fs_{tag}")
+        runs[tag] = (res, cap, launches())
+    (rs, cs, ls), (rf, cf, lf) = runs["sequential"], runs["fused_server"]
+    if not cf.multi or min(cf.multi) < 2:
+        fail(f"train_fused_server: no batched server call ({cf.multi})")
+    if cs.multi:
+        fail("train_fused_server: the sequential run batched")
+    for k, a, b in (("clock", rs["clock"], rf["clock"]),
+                    ("comm", rs["comm"], rf["comm"]),
+                    ("int8_roundtrip", ls["int8_roundtrip"],
+                     lf["int8_roundtrip"]),
+                    ("splits", cs.splits, cf.splits)):
+        if a != b:
+            fail(f"train_fused_server: {k} {b} != sequential {a}")
+    if lf["int8_roundtrip"] <= 0:
+        fail("train_fused_server: int8_roundtrip never launched")
+    dl = max(abs(a["loss"] - b["loss"])
+             for a, b in zip(rs["history"], rf["history"]))
+    if not dl <= LOSS_TOL:
+        fail(f"train_fused_server: losses differ by {dl}")
+    emit("train_fused_server", args=[*FUSED_INT8, "--fused-server"],
+         batched_calls=len(cf.multi), groups_batched=sum(cf.multi),
+         groups_per_call=cf.multi, clock=rf["clock"], comm=rf["comm"],
+         int8_roundtrip=lf["int8_roundtrip"], max_loss_diff=dl,
+         losses=[h["loss"] for h in rf["history"]],
+         round_wall_s={"sequential": cs.round_s,
+                       "fused_server": cf.round_s})
+
+
+SERVICE = ["--rounds", "3", "--codec", "int8", "--error-feedback",
+           "--fault-kill-prob", "0.25", "--checkpoint-every", "1",
+           "--pipeline"]
+INT8_PAIR = ("int8_quantize", "int8_dequantize")
+
+
+def _params_of(path: Path) -> dict:
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k.startswith("/params/")}
+
+
+def phase_train_service(torch, tmp):
+    """vgg16 at full width under churn with per-round snapshots, a trace
+    and a metrics stream (``--pipeline``: flights need the phase
+    timeline), 3 rounds straight twice, then resumed from the first
+    run's round-1 snapshot for the other 2. History (losses aside),
+    splits, clock, comm and the exactly-once ledger must be exactly
+    equal; the resumed run's int8 launches those of the straight run's
+    rounds 2-3; params bitwise equal if the two straight runs are, else
+    no further from the first than the second is."""
+    import numpy as np
+    runs = {}
+    for tag in ("straight_a", "straight_b", "resumed"):
+        d = tmp / f"service_{tag}"
+        d.mkdir()
+        extra = ["--checkpoint-dir", str(d / "ck"),
+                 "--trace-out", str(d / "trace.json"),
+                 "--metrics-out", str(d / "metrics.jsonl")]
+        if tag == "resumed":
+            extra += ["--resume-from",
+                      str(tmp / "service_straight_a/ck/round00001.npz")]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with Capture() as cap:
+            res = run_train([*VGG, "--device", "cuda", *SERVICE, *extra],
+                            tmp, f"service_{tag}")
+        runs[tag] = dict(res=res, cap=cap, dir=d, wall_s=time.time() - t0,
+                         launches=launches())
+    a, b, c = runs["straight_a"], runs["straight_b"], runs["resumed"]
+
+    def ledger(r):
+        s = r["res"]["summary"]
+        return (s["dispatched"], s["committed"], s["abandoned"])
+
+    def hist(r):
+        return [{k: v for k, v in h.items() if k != "loss"}
+                for h in r["res"]["history"]]
+
+    if ledger(a)[2] <= 0:
+        fail(f"train_service: the fault plan abandoned nothing {ledger(a)}")
+    for tag, r, splits in (("straight_b", b, a["cap"].splits),
+                           ("resumed", c, a["cap"].splits[1:])):
+        for k, x, y in (("clock", a["res"]["clock"], r["res"]["clock"]),
+                        ("comm", a["res"]["comm"], r["res"]["comm"]),
+                        ("ledger", ledger(a), ledger(r)),
+                        ("history", hist(a), hist(r)),
+                        ("splits", splits, r["cap"].splits)):
+            if x != y:
+                fail(f"train_service: {tag} {k} {y} != {x}")
+    rounds_23 = {k: a["launches"][k] - a["cap"].after_round[0][k]
+                 for k in INT8_PAIR}
+    if {k: c["launches"][k] for k in INT8_PAIR} != rounds_23 \
+            or min(rounds_23.values()) <= 0:
+        fail(f"train_service: resumed launches {c['launches']} != "
+             f"rounds 2-3 {rounds_23}")
+    pa, pb, pc = (_params_of(r["dir"] / "ck" / "round00003.npz")
+                  for r in (a, b, c))
+
+    def max_diff(x, y):
+        return max(float(np.abs(x[k].astype(np.float64)
+                                - y[k].astype(np.float64)).max())
+                   for k in x)
+
+    straight_bitwise = all(np.array_equal(pa[k], pb[k]) for k in pa)
+    resumed_bitwise = all(np.array_equal(pa[k], pc[k]) for k in pa)
+    d_ab, d_ac = max_diff(pa, pb), max_diff(pa, pc)
+    if straight_bitwise and not resumed_bitwise:
+        fail(f"train_service: straight runs agree bitwise, the resumed "
+             f"run differs by {d_ac}")
+    if not d_ac <= d_ab:
+        fail(f"train_service: resumed differs by {d_ac}, more than the "
+             f"straight runs' {d_ab}")
+    from repro_torch.observe import load_recorder
+    flights = len(load_recorder(str(a["dir"] / "trace.json")).flights)
+    if not flights:
+        fail("train_service: the trace holds no flights")
+    with open(a["dir"] / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    if len(records) != 3 + 1:
+        fail(f"train_service: {len(records)} metrics records, want 4")
+    emit("train_service", args=SERVICE, ledger=ledger(a),
+         clock=a["res"]["clock"], comm=a["res"]["comm"],
+         splits=a["cap"].splits,
+         straight_runs_bitwise=straight_bitwise,
+         resumed_bitwise=resumed_bitwise,
+         max_param_diff={"straight": d_ab, "resumed": d_ac},
+         int8_launches={t: {k: r["launches"][k] for k in INT8_PAIR}
+                        for t, r in runs.items()},
+         snapshot_ms={t: r["cap"].snapshot_ms for t, r in runs.items()},
+         round_wall_s={t: r["cap"].round_s for t, r in runs.items()},
+         run_wall_s={t: r["wall_s"] for t, r in runs.items()},
+         trace_flights=flights,
+         metrics_records=len(records))
+
+
+CONTROL = ["--rounds", "6", "--exec-mode", "semi_async",
+           "--resource-aware", "--scheduler", "joint", "--auto-knobs",
+           "--fleet-size", "100000", "--clusters", "4",
+           "--fault-kill-prob", "0.2"]
+
+
+def phase_parity_control(tmp):
+    """resnet8's golden config with int8 and the control plane, a fleet
+    and churn, on the card and on the CPU: clock, comm, splits, the
+    ledger and the knob controller's lock and rejections exactly equal,
+    losses within 1e-3."""
+    base = ["--arch", "resnet8", "--clients", "6", "--per-round", "4",
+            "--batch-size", "16", "--n-train", "240", "--alpha", "0.3",
+            "--eval-every", "1000", "--seed", "0", "--codec", "int8",
+            *CONTROL]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with Capture() as cap:
+            res = run_train([*base, "--device", dev], tmp,
+                            f"control_{dev}")
+        kc = cap.engines[-1].driver.knob_controller
+        s = res["summary"]
+        out[dev] = dict(res=res, splits=cap.splits, locked=kc.locked,
+                        rejected=list(kc.rejected),
+                        ledger=(s["dispatched"], s["committed"],
+                                s["abandoned"]))
+    g, c = out["cuda"], out["cpu"]
+    for k in ("splits", "locked", "rejected", "ledger"):
+        if g[k] != c[k]:
+            fail(f"parity_control: {k} card {g[k]} != cpu {c[k]}")
+    for k in ("clock", "comm"):
+        if g["res"][k] != c["res"][k]:
+            fail(f"parity_control: {k} card {g['res'][k]} != cpu "
+                 f"{c['res'][k]}")
+    lg = [h["loss"] for h in g["res"]["history"]]
+    lc = [h["loss"] for h in c["res"]["history"]]
+    dl = max(abs(a - b) for a, b in zip(lg, lc)
+             if not (math.isnan(a) and math.isnan(b)))
+    if not dl <= LOSS_TOL:
+        fail(f"parity_control: losses differ by {dl}: {lg} vs {lc}")
+    emit("parity_control", args=CONTROL, clock=g["res"]["clock"],
+         comm=g["res"]["comm"], splits=g["splits"], ledger=g["ledger"],
+         locked={d: out[d]["locked"] for d in out},
+         rejected={d: out[d]["rejected"] for d in out},
+         losses_cuda=lg, losses_cpu=lc, max_loss_diff=dl)
 
 
 # ------------------------------------------------- slices 2-3: the LM path
@@ -1387,6 +1675,9 @@ def main() -> int:
                              ["--fused-comm", "--codec", "topk",
                               "--error-feedback"], ["sparse_combine"])
         phase_parity(tmp)
+        phase_train_fused_server(torch, tmp)
+        phase_train_service(torch, tmp)
+        phase_parity_control(tmp)
     timed.update(phase_lm_kernels(torch))
     served = phase_serve(torch, dev)
     phase_serve_parity(torch, dev)

@@ -203,10 +203,18 @@ class DriverConfig:
     free-overlap regime) and ``gate_redispatch`` makes a device wait
     out its own draining download before it can start the next round's
     upload — both only observable under ``pipeline``.
-    ``resource_aware``, ``auto_knobs``, ``fleet_size``, ``clusters``
-    and ``cluster_quorum`` select the control plane, the batched fleet
-    and hierarchical aggregation, whose modules are not ported yet: the
-    engine refuses any non-default value of them."""
+    ``resource_aware`` upgrades the forecast from the link model's mean
+    rate to a ResourceView over live driver state (queue depth, fluid
+    backlogs, draining flows, learned horizon band — core/control.py);
+    ``auto_knobs`` lets an AggregationController probe nearby
+    (quorum, staleness_cap) pairs and lock the fastest (semi-async
+    only).
+    ``fleet_size`` switches the population to batched (P,) fleet tables
+    (core/fleet.py): cohorts are fleet-sampled, Device objects
+    materialize only for sampled cids. ``clusters`` > 1 turns on
+    hierarchical aggregation (devices → edge clusters → main server):
+    each cluster closes at its own ``cluster_quorum`` quantile, the
+    global window at ``quorum`` over the cluster close times."""
 
     exec_mode: str = "sync"             # sync | semi_async
     staleness_cap: int = 1              # max rounds an update may lag

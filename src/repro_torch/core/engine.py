@@ -18,7 +18,10 @@ per-group server copies and the per-device client copies, so every
 update here is out of place (``w - lr * g``): an in-place step would
 write through to every copy. Gradients come from
 ``torch.autograd.grad(..., allow_unused=True)``; a leaf the loss does not
-reach gets no gradient and is kept as it is.
+reach gets no gradient and is kept as it is. The multi-group server step
+(``fused_server``) takes them from ``torch.func.grad_and_value`` under
+``torch.func.vmap`` instead, where such a leaf gets a zero gradient:
+``w - lr * 0`` is ``w`` bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.core.aggregation import (ClientState, aggregate,
 from repro_torch.core.balance import greedy_groups, label_histogram
 from repro_torch.core.driver import FedAvgCost, MeteredCost, RoundDriver
 from repro_torch.core.scheduler import (FixedSplitScheduler,
+                                        JointKnobScheduler,
                                         MinTimeScheduler,
                                         SlidingSplitScheduler)
 from repro_torch.core.split import SplitPlan, default_plan
@@ -43,9 +47,7 @@ from repro_torch.models.api import SplitModel
 from repro_torch.utils import flops as flops_util
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import (get_subtree, set_subtree, tree_flatten,
-                                    tree_unflatten)
-
-_NOT_PORTED = "not yet ported (its module is a later slice of the port)"
+                                    tree_map, tree_unflatten)
 
 
 @dataclasses.dataclass
@@ -54,6 +56,9 @@ class EngineConfig:
     use_balance: bool = True      # +B (False -> each device its own group)
     use_sliding: bool = True      # +M (False -> fixed largest split)
     scheduler: str = "median"     # 'median' (paper §3.1) | 'mintime'
+                                  # | 'joint' (beyond-paper, scheduler.py)
+    batch_fracs: tuple = ()       # 'joint' candidate batch fractions;
+                                  # () -> (1.0, 0.75, 0.5)
     rounds: int = 50
     clients_per_round: int = 10
     local_steps: int = 1          # E
@@ -70,26 +75,24 @@ class EngineConfig:
     # round-loop execution: sync barrier vs semi-async event queue, and
     # predictive (link-forecasting) split selection
     driver: DriverConfig = dataclasses.field(default_factory=DriverConfig)
+    # batched hot path (both default off: the seed path stays bit-exact).
     # fused_comm flushes each direction's whole cohort through ONE
     # fused kernel call (comm/fused.py) — bytes metered bit-equal,
-    # tensors ≤1e-6 vs the sequential chain. fused_server (the vmapped
-    # multi-group server step) is not ported yet.
+    # tensors ≤1e-6 vs the sequential chain. fused_server stacks
+    # same-signature concurrent groups into one vmapped server step
+    # (losses/params may drift ~1e-4 from batched-kernel numerics).
     fused_comm: bool = False
     fused_server: bool = False
 
 
-def _check_ported(ecfg: EngineConfig):
-    """Refuse the knobs whose modules are later slices of the port."""
-    d = ecfg.driver
-    refused = {"fused_server": ecfg.fused_server,
-               "scheduler='joint'": ecfg.scheduler == "joint",
-               "resource_aware": d.resource_aware,
-               "auto_knobs": d.auto_knobs,
-               "fleet_size": bool(d.fleet_size),
-               "clusters": d.clusters > 1}
-    bad = [k for k, v in refused.items() if v]
-    if bad:
-        raise NotImplementedError(f"{', '.join(bad)}: {_NOT_PORTED}")
+def _tree_stack(trees):
+    """Stack a list of same-structure trees leaf-wise: (…)->(G, …)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _tree_index(tree, i):
+    """Leaf-wise slice of a stacked tree: (G, …)[i] -> (…)."""
+    return tree_map(lambda x: x[i], tree)
 
 
 def _sgd(params, grads, lr):
@@ -115,21 +118,38 @@ class S2FLEngine:
 
     def __init__(self, model: SplitModel, data: dict, ecfg: EngineConfig,
                  devices: Optional[list] = None,
-                 plan: Optional[SplitPlan] = None, *, device):
-        _check_ported(ecfg)
+                 plan: Optional[SplitPlan] = None, recorder=None,
+                 fault_plan=None, *, device):
         self.device = resolve_device(device)
         self.model = model
         self.data = data
         self.ecfg = ecfg
         self.rng = np.random.default_rng(ecfg.seed)
         self.plan = plan or default_plan(model.n_units, k=ecfg.split_k)
-        self.devices = devices or sim.make_device_grid(len(data),
-                                                       seed=ecfg.seed)
+        # fleet mode (core/fleet.py): the population lives as (P,)
+        # tables, cohorts are fleet-sampled, and the object grid is
+        # never materialized — each fleet cid trains on the data shard
+        # cid mod n_shards
+        self.fleet = None
+        if ecfg.driver.fleet_size and devices is None:
+            from repro_torch.core.fleet import Fleet
+            self.fleet = Fleet.table1(ecfg.driver.fleet_size,
+                                      seed=ecfg.seed,
+                                      clusters=ecfg.driver.clusters)
+            self.devices = []
+        else:
+            self.devices = devices or sim.make_device_grid(len(data),
+                                                           seed=ecfg.seed)
         self.dev_by_id = {d.cid: d for d in self.devices}
+        self._shards = sorted(data)
 
         if ecfg.mode == "s2fl" and ecfg.use_sliding:
             if ecfg.scheduler == "mintime":
                 self.scheduler = MinTimeScheduler(self.plan)
+            elif ecfg.scheduler == "joint":
+                self.scheduler = JointKnobScheduler(
+                    self.plan,
+                    batch_fracs=ecfg.batch_fracs or (1.0, 0.75, 0.5))
             else:
                 self.scheduler = SlidingSplitScheduler(self.plan)
         else:
@@ -137,8 +157,19 @@ class S2FLEngine:
 
         self.params = model.init(ecfg.seed, device=self.device)
         self.channel = make_channel(ecfg.comm)
+        # observability (observe/): one recorder feeds both the driver's
+        # flight/window hooks and the channel's wire counters; None (the
+        # default) keeps every hook site a dead branch
+        self.recorder = recorder
+        self.channel.recorder = recorder
         self.history = []          # per round dicts
         self._hists = {cid: self._client_hist(cid) for cid in data}
+        # the words of the reference's PRNGKey(seed + 1): the port draws
+        # no key, but its run-state snapshots carry them so that either
+        # package restores the other's (checkpoint/state.py)
+        s = ecfg.seed + 1
+        self._key = np.array([(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF],
+                             dtype=np.uint32)
 
         # the unified round loop (core/driver.py): the engine's rounds
         # are metered-cost driver rounds; clock/comm live on the driver
@@ -153,17 +184,29 @@ class S2FLEngine:
                 self.channel,
                 lambda s: flops_util.split_costs(self.model, s),
                 p_of=self._p_of)
-        # the engine's batches are never scaled, so the cost model's
-        # frac_of hook stays inert (a unit sentinel stops the driver's
-        # auto-wiring from scaling p)
+        # the engine scales its REAL batches by the joint scheduler's
+        # selected fracs (_batch_size_of feeds both _p_of and
+        # _sample_batch), so the cost model's frac_of hook must stay
+        # inert — a unit sentinel here stops the driver's auto-wiring
+        # from scaling the already-scaled p a second time
         cost.frac_of = lambda cid: 1.0
+        knobs = None
+        if dcfg.auto_knobs and dcfg.exec_mode == "semi_async":
+            from repro_torch.core.control import (AggregationController,
+                                                  default_knob_grid)
+            knobs = AggregationController(
+                default_knob_grid(dcfg.quorum, dcfg.staleness_cap))
         self.driver = RoundDriver(
             self.scheduler, cost, self.devices, mode=dcfg.exec_mode,
             staleness_cap=dcfg.staleness_cap, quorum=dcfg.quorum,
             predictive=dcfg.predictive, pipeline=dcfg.pipeline,
             server_concurrency=dcfg.server_concurrency,
             gate_redispatch=dcfg.gate_redispatch,
-            warmup_devices=[d for d in self.devices if d.cid in data])
+            resource_aware=dcfg.resource_aware,
+            warmup_devices=[d for d in self.devices if d.cid in data],
+            recorder=recorder, fault_plan=fault_plan,
+            knob_controller=knobs, fleet=self.fleet,
+            clusters=dcfg.clusters, cluster_quorum=dcfg.cluster_quorum)
         self._held = {}            # gid -> un-committed round results
         self._next_gid = 0
 
@@ -179,26 +222,49 @@ class S2FLEngine:
         return self.driver.comm
 
     # ------------------------------------------------------------------ data
+    def _shard_key(self, cid):
+        """Data shard a cid trains on. Object-grid cids own their shard
+        outright; fleet cids fold onto the federated partition by
+        ``cid mod n_shards`` (a 10^6-device population shares the same
+        non-IID shards, many devices per shard)."""
+        if self.fleet is None or cid in self.data:
+            return cid
+        return self._shards[int(cid) % len(self._shards)]
+
     def _client_hist(self, cid):
-        return label_histogram(self.data[cid]["y"], self.ecfg.n_classes)
+        return label_histogram(self.data[self._shard_key(cid)]["y"],
+                               self.ecfg.n_classes)
+
+    def _batch_size_of(self, cid):
+        """Configured batch size scaled by the joint scheduler's selected
+        fraction for this round ({} / absent -> full batch). Single
+        source of truth for BOTH the cost model (_p_of) and the real
+        sampled batch, so priced and executed sample counts agree."""
+        b = self.ecfg.batch_size
+        fracs = getattr(self.scheduler, "selected_fracs", None)
+        if fracs:
+            f = fracs.get(cid, 1.0)
+            if f != 1.0:
+                b = max(1, int(round(b * f)))
+        return b
 
     def _sample_batch(self, cid):
-        d = self.data[cid]
+        d = self.data[self._shard_key(cid)]
         n = len(d["y"])
-        b = self.ecfg.batch_size
+        b = self._batch_size_of(cid)
         idx = self.rng.choice(n, size=min(b, n), replace=n < b)
         return {k: torch.as_tensor(v[idx]).to(self.device)
                 for k, v in d.items()}
 
     def _data_size(self, cid):
-        return float(len(self.data[cid]["y"]))
+        return float(len(self.data[self._shard_key(cid)]["y"]))
 
     def _p_of(self, cid):
         """Samples cid actually processes per round: _sample_batch
         truncates to the client's data size, so Eq.-1 compute terms and
         the warm-up payload estimate must truncate identically or the
         time table would disagree with the metered post-warm-up times."""
-        return self.ecfg.local_steps * min(self.ecfg.batch_size,
+        return self.ecfg.local_steps * min(self._batch_size_of(cid),
                                            int(self._data_size(cid)))
 
     # ------------------------------------------------- model wire legs
@@ -294,6 +360,33 @@ class S2FLEngine:
         dfxs = [{k: next(fgrads) for k in f} for f in feats]
         return loss.detach(), sgrads, dfxs
 
+    def _multi_server_step(self, gsplits, sp_stack, feats_stack,
+                           batches_stack):
+        """Batched dual of ``_server_step`` + its SGD update: every
+        concurrent group with the same signature (member splits +
+        feature/batch shapes) rides ONE call — the per-group Eq.-3 loss,
+        its gradients and the Eq.-4 update under ``torch.func.vmap``
+        over the stacked (G, …) server copies, features and batches.
+        -> (new stacked copies, losses (G,), stacked [dfx_i])."""
+        m, lr = self.model, self.ecfg.lr
+
+        def loss_fn(sp, feats_list, batches):
+            return torch.sum(torch.stack(
+                [m.server_loss(sp, f, b, s)[0]
+                 for s, f, b in zip(gsplits, feats_list, batches)]))
+
+        def one(sp, feats_list, batches):
+            (sgrads, dfxs), val = torch.func.grad_and_value(
+                loss_fn, argnums=(0, 1))(sp, feats_list, batches)
+            # a leaf the loss does not reach has a zero gradient here
+            # (None on the sequential path): w - lr * 0 is w exactly
+            new_sp = tree_map(
+                lambda w, g: (w - lr * g.to(w.dtype)).to(w.dtype),
+                sp, sgrads)
+            return new_sp, val, dfxs
+
+        return torch.func.vmap(one)(sp_stack, feats_stack, batches_stack)
+
     def _client_update(self, p, batch, dfx, split):
         """Steps 7/8: backprop dfx through the client forward; SGD."""
         leaves, tree = _with_grad(p)
@@ -311,13 +404,16 @@ class S2FLEngine:
     # ------------------------------------------------- fused local step
     def _local_step_fused(self, groups, splits, server_copies,
                           client_params):
-        """One local step with each direction's whole cohort flushed
-        through ONE fused call (``fused_comm``). Batch sampling, wire
-        transfers and loss recording all happen in the sequential path's
-        order, so RNG streams, rand-k draw counters, residual keys and
-        every byte metered are identical to the per-device loop;
-        delivered tensors match ≤1e-6. Returns the per-group losses in
-        group order; mutates server_copies / client_params in place."""
+        """One local step with the batched hot paths: cohort the uplink
+        and downlink through ONE fused call per direction
+        (``fused_comm``) and stack same-signature concurrent groups'
+        server backwards into one vmapped step (``fused_server``). Batch
+        sampling, wire transfers and loss recording all happen in the
+        sequential path's order, so RNG streams, rand-k draw counters,
+        residual keys and every byte metered are identical to the
+        per-device loop; delivered tensors match ≤1e-6 and vmapped
+        numerics may drift ~1e-4. Returns the per-group losses in group
+        order; mutates server_copies / client_params in place."""
         ecfg = self.ecfg
         # 1. draw batches group-major — the sequential RNG call order
         batches_by_g = [[self._sample_batch(c) for c in group]
@@ -328,25 +424,62 @@ class S2FLEngine:
                 fwd[c] = self._client_fwd(client_params[c], b, splits[c])
         # 2. step 4 — the whole cohort's features cross the uplink at
         # once (one fused call; bytes metered per device, bit-equal)
-        rx = iter(self.channel.uplink_features_cohort(
-            [(c, fwd[c]) for group in groups for c in group]))
-        feats_by_g = [[next(rx) for _ in group] for group in groups]
-        # 3. steps 5/6 — server backwards
+        if ecfg.fused_comm:
+            rx = iter(self.channel.uplink_features_cohort(
+                [(c, fwd[c]) for group in groups for c in group]))
+            feats_by_g = [[next(rx) for _ in group] for group in groups]
+        else:
+            feats_by_g = [[self.channel.uplink_features(c, fwd[c])
+                           for c in group] for group in groups]
+        # 3. steps 5/6 — server backwards, bucketed by signature and
+        # vmapped when batching is on
         losses = [None] * len(groups)
         dfx_by_g = [None] * len(groups)
-        for gi, group in enumerate(groups):
-            gsplits = tuple(splits[c] for c in group)
+
+        def seq_step(gi):
+            gsplits = tuple(splits[c] for c in groups[gi])
             loss, sgrads, dfxs = self._server_step(
                 server_copies[gi], feats_by_g[gi], batches_by_g[gi],
                 gsplits)
             server_copies[gi] = _sgd(server_copies[gi], sgrads, ecfg.lr)
             losses[gi], dfx_by_g[gi] = float(loss), dfxs
+
+        if ecfg.fused_server:
+            buckets = {}
+            for gi, group in enumerate(groups):
+                payload = (feats_by_g[gi], batches_by_g[gi])
+                sig = (tuple(splits[c] for c in group),
+                       repr(tree_map(lambda x: None, payload)),
+                       tuple((tuple(x.shape), x.dtype)
+                             for x in tree_flatten(payload)[0]))
+                buckets.setdefault(sig, []).append(gi)
+            for (gsplits, _, _), gis in buckets.items():
+                if len(gis) == 1:          # nothing to batch with
+                    seq_step(gis[0])
+                    continue
+                new_sp, vals, dfx_stack = self._multi_server_step(
+                    gsplits,
+                    _tree_stack([server_copies[gi] for gi in gis]),
+                    _tree_stack([feats_by_g[gi] for gi in gis]),
+                    _tree_stack([batches_by_g[gi] for gi in gis]))
+                for j, gi in enumerate(gis):
+                    server_copies[gi] = _tree_index(new_sp, j)
+                    dfx_by_g[gi] = _tree_index(dfx_stack, j)
+                    losses[gi] = float(vals[j])
+        else:
+            for gi in range(len(groups)):
+                seq_step(gi)
         # 4. steps 7/8 — dfx back over the downlink (cohort flush), then
         # per-device Wc updates
-        rx = iter(self.channel.downlink_grads_cohort(
-            [(c, dfx) for gi, group in enumerate(groups)
-             for c, dfx in zip(group, dfx_by_g[gi])]))
-        dfx_by_g = [[next(rx) for _ in group] for group in groups]
+        if ecfg.fused_comm:
+            rx = iter(self.channel.downlink_grads_cohort(
+                [(c, dfx) for gi, group in enumerate(groups)
+                 for c, dfx in zip(group, dfx_by_g[gi])]))
+            dfx_by_g = [[next(rx) for _ in group] for group in groups]
+        else:
+            dfx_by_g = [[self.channel.downlink_grads(c, dfx)
+                         for c, dfx in zip(group, dfx_by_g[gi])]
+                        for gi, group in enumerate(groups)]
         for gi, group in enumerate(groups):
             for c, b, dfx in zip(group, batches_by_g[gi], dfx_by_g[gi]):
                 client_params[c] = self._client_update(
@@ -356,10 +489,16 @@ class S2FLEngine:
     # ------------------------------------------------------------- rounds
     def run_round(self):
         ecfg = self.ecfg
-        participants = list(self.rng.choice(
-            sorted(self.data), size=min(ecfg.clients_per_round,
-                                        len(self.data)),
-            replace=False))
+        if self.fleet is not None:
+            # seeded fleet draw — churn/diurnal availability applied
+            # inside sample_cohort, dead devices never selected
+            participants = [int(c) for c in self.fleet.sample_cohort(
+                self.driver.round, ecfg.clients_per_round)]
+        else:
+            participants = list(self.rng.choice(
+                sorted(self.data), size=min(ecfg.clients_per_round,
+                                            len(self.data)),
+                replace=False))
         if ecfg.mode == "fedavg":
             return self._fedavg_round(participants)
         return self._sfl_round(participants)
@@ -369,13 +508,17 @@ class S2FLEngine:
         group_losses = []              # last local step's per-group losses
 
         def execute(splits):
+            # the driver filters fault-killed devices from the cohort
+            # before selection, so the alive list is exactly splits'
+            # keys (== participants when no fault plan is armed)
             alive = [c for c in participants if c in splits]
             # Step 5: grouping (Eq. 2) — balance on, else singletons
             if not alive:
                 groups = []
             elif ecfg.mode == "s2fl" and ecfg.use_balance:
-                groups = greedy_groups([self._hists[c] for c in alive],
-                                       ecfg.group_size)
+                groups = greedy_groups(
+                    [self._hists[self._shard_key(c)] for c in alive],
+                    ecfg.group_size)
                 groups = [tuple(alive[i] for i in g) for g in groups]
             else:
                 groups = [(c,) for c in alive]
@@ -393,8 +536,9 @@ class S2FLEngine:
                 client_params = {c: self._wc_leg(c, self.params,
                                                  splits[c], "dispatch")
                                  for c in alive}
+            fused = ecfg.fused_comm or ecfg.fused_server
             for step_i in range(ecfg.local_steps):
-                if ecfg.fused_comm:
+                if fused:
                     step_losses = self._local_step_fused(
                         groups, splits, server_copies, client_params)
                     if step_i == ecfg.local_steps - 1:
@@ -459,6 +603,8 @@ class S2FLEngine:
                 alive)
 
         rec = self.driver.run_round(participants, execute=execute)
+        # a kill abandoned these work items: drop their held state (the
+        # driver guarantees their commit events can never fire)
         for gid in rec.abandoned:
             self._held.pop(gid, None)
         self._commit(rec.committed)
@@ -572,6 +718,12 @@ class S2FLEngine:
                 t_download=max(p["down"] for p in rec.phases.values()),
                 downloads_in_flight=rec.downloads)
         self.history.append(entry)
+        # the aggregation controller scores probes on accuracy too: the
+        # observed loss trajectory disqualifies knob settings whose
+        # per-round loss delta regresses past the anchor's
+        kc = self.driver.knob_controller
+        if kc is not None:
+            kc.observe_loss(loss)
         return self.history[-1]
 
     # -------------------------------------------------------------- eval

@@ -6,15 +6,23 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch resnet8 --rounds 3 --n-train 240 --clients 6
 
-The parser is the reference trainer's, flag for flag. Flags whose
-modules are later slices of the port (observability, fault injection,
-checkpoints, the control plane, fleets, the vmapped server step, the LM
-families) raise before any work is done; they are never ignored.
+The parser is the reference trainer's, flag for flag, and every flag
+works on the CNN families. S²FL training of the LM families is a later
+slice of the port: ``--arch <LM>`` raises before any work is done.
+
+Restartable service loop: ``--checkpoint-every N`` snapshots the FULL
+training state (model + driver timeline + channel + scheduler + rng —
+checkpoint/state.py) every N rounds into ``--checkpoint-dir``; a
+crashed run resumes with ``--resume-from <snapshot.npz>`` and replays
+the remaining rounds bit-exactly on the fp32 sync path (on the CPU).
+``--fault-plan`` / ``--fault-kill-prob`` arm churn injection
+(core/faults.py) for chaos drills against the same loop.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 from repro_torch.configs import (CNNConfig, CommConfig, DriverConfig,
@@ -23,15 +31,6 @@ from repro_torch.core.engine import EngineConfig, S2FLEngine
 from repro_torch.data.partition import federate
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.models import SplitModel
-
-# flags whose modules are not ported yet: any non-default value raises
-NOT_PORTED = ("trace_out", "metrics_out", "metrics_every",
-              "fused_server", "resource_aware", "batch_fracs",
-              "auto_knobs", "fleet_size", "clusters", "cluster_quorum",
-              "fault_plan", "fault_kill_prob", "fault_rejoin_prob",
-              "fault_seed", "fault_server_policy",
-              "fault_residual_policy", "checkpoint_every",
-              "checkpoint_dir", "resume_from")
 
 
 def build_data(cfg, *, n_train: int, n_test: int, n_clients: int, alpha,
@@ -72,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--history-out", default=None,
                     help="dump engine.history (per-round records) as "
                          "JSON to this path")
-    # observability (not yet ported)
+    # observability (repro_torch.observe)
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome trace-event JSON of the run "
                          "(open in https://ui.perfetto.dev); also "
@@ -157,14 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "tensors within 1e-6")
     ap.add_argument("--fused-server", action="store_true",
                     help="stack same-signature concurrent groups' "
-                         "server backwards into one vmapped, donated "
-                         "step (numerics may drift ~1e-4)")
+                         "server backwards into one vmapped step "
+                         "(numerics may drift ~1e-4)")
     ap.add_argument("--gate-redispatch", action="store_true",
                     help="a device waits out its own draining download "
                          "before its next upload may start (off = the "
                          "semi-async queue's overcommit optimism); "
                          "only observable under --pipeline")
-    # resource-aware control plane (not yet ported)
+    # resource-aware control plane (core/control.py)
     ap.add_argument("--resource-aware", action="store_true",
                     help="price candidate splits against live driver "
                          "state (server queue depth, fluid-link "
@@ -182,7 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--auto-knobs", action="store_true",
                     help="probe nearby (quorum, staleness_cap) pairs "
                          "and lock the fastest (semi-async only)")
-    # batched million-device fleets (not yet ported)
+    # batched million-device fleets (core/fleet.py)
     ap.add_argument("--fleet-size", type=int, default=0,
                     help="simulate this many devices as batched (P,) "
                          "population tables: cohorts are fleet-sampled "
@@ -198,7 +197,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "closes at this fraction of its members' "
                          "arrivals, then --quorum applies over the "
                          "cluster close times")
-    # fault injection + restartable service loop (not yet ported)
+    # fault injection + restartable service loop (core/faults.py,
+    # checkpoint/state.py)
     ap.add_argument("--fault-plan", default="",
                     help="JSON FaultPlan file of seeded kill/rejoin "
                          "events (core/faults.py to_file format)")
@@ -237,22 +237,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_ported(ap: argparse.ArgumentParser, args) -> None:
-    """Raise on every flag whose module is not ported yet."""
-    bad = [f"--{k.replace('_', '-')}" for k in NOT_PORTED
-           if getattr(args, k) != ap.get_default(k)]
-    if args.scheduler == "joint":
-        bad.append("--scheduler joint")
-    if bad:
-        raise NotImplementedError(
-            f"{' '.join(bad)}: not yet ported (a later slice of the "
-            f"port)")
-
-
 def main(argv=None):
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    check_ported(ap, args)
+    args = build_parser().parse_args(argv)
     cfg = get_config(args.arch)
     if not isinstance(cfg, CNNConfig):   # every LM arch, MoE / MLA too
         raise NotImplementedError(
@@ -277,24 +263,89 @@ def main(argv=None):
                         quorum=args.quorum, predictive=args.predictive,
                         pipeline=args.pipeline,
                         server_concurrency=args.server_slots,
-                        gate_redispatch=args.gate_redispatch)
+                        gate_redispatch=args.gate_redispatch,
+                        resource_aware=args.resource_aware,
+                        auto_knobs=args.auto_knobs,
+                        fleet_size=args.fleet_size,
+                        clusters=args.clusters,
+                        cluster_quorum=args.cluster_quorum)
+    fracs = tuple(float(f) for f in args.batch_fracs.split(",")
+                  if f.strip()) if args.batch_fracs else ()
     ecfg = EngineConfig(
         mode=args.mode, rounds=args.rounds,
         clients_per_round=args.per_round, batch_size=args.batch_size,
         local_steps=args.local_steps, lr=args.lr, seed=args.seed,
         use_balance=not args.no_balance, use_sliding=not args.no_sliding,
-        scheduler=args.scheduler, n_classes=cfg.n_classes, comm=ccfg,
-        driver=dcfg, fused_comm=args.fused_comm)
+        scheduler=args.scheduler, batch_fracs=fracs,
+        n_classes=cfg.n_classes, comm=ccfg, driver=dcfg,
+        fused_comm=args.fused_comm, fused_server=args.fused_server)
 
     model = SplitModel(cfg)
     fed, test, _ = build_data(
         cfg, n_train=args.n_train, n_test=max(500, args.n_train // 8),
         n_clients=args.clients, alpha=args.alpha, seed=args.seed)
-    eng = S2FLEngine(model, fed, ecfg, device=args.device)
+
+    # churn: an explicit plan file wins; otherwise a seeded random
+    # process over the federation's cids (deterministic per seed, so a
+    # resumed run sees the identical schedule)
+    fault_plan = None
+    if args.fault_plan:
+        from repro_torch.core.faults import FaultPlan
+        fault_plan = FaultPlan.from_file(args.fault_plan)
+    elif args.fault_kill_prob > 0:
+        from repro_torch.core.faults import FaultPlan
+        fault_plan = FaultPlan.random(
+            sorted(fed), args.rounds, seed=args.fault_seed,
+            kill_prob=args.fault_kill_prob,
+            rejoin_prob=args.fault_rejoin_prob,
+            server_policy=args.fault_server_policy,
+            residual_policy=args.fault_residual_policy)
+
+    # observability: one recorder feeds the driver's flight/window
+    # hooks, the channel's wire counters, and (when streaming) the live
+    # metrics registry — absent flags, nothing is built and every hook
+    # stays a dead branch
+    recorder, registry, sink = None, None, None
+    if args.trace_out or args.metrics_out:
+        from repro_torch.observe import JsonlSink, MetricsRegistry, Recorder
+        registry = MetricsRegistry() if args.metrics_out else None
+        recorder = Recorder(metrics=registry)
+        if args.metrics_out:
+            sink = JsonlSink(args.metrics_out)
+
+    eng = S2FLEngine(model, fed, ecfg, recorder=recorder,
+                     fault_plan=fault_plan, device=args.device)
+
+    # service loop: resume restores the FULL state (history included —
+    # its length is the next round index) and replays the remainder
+    start_round = 0
+    if args.resume_from:
+        from repro_torch.checkpoint import restore_run_state
+        restore_run_state(args.resume_from, eng)
+        start_round = len(eng.history)
+        print(f"== resumed {args.resume_from} at round {start_round} ==")
+
+    emitted = 0
+
+    def on_round(rec):
+        nonlocal emitted
+        if sink is not None \
+                and rec["round"] % max(args.metrics_every, 1) == 0:
+            sink.emit({"kind": "round", **rec,
+                       "metrics": registry.snapshot()})
+            emitted += 1
+        done = rec["round"] + 1
+        if args.checkpoint_every and done % args.checkpoint_every == 0:
+            from repro_torch.checkpoint import save_run_state
+            os.makedirs(args.checkpoint_dir, exist_ok=True)
+            path = os.path.join(args.checkpoint_dir,
+                                f"round{done:05d}.npz")
+            save_run_state(path, eng)
+            print(f"  checkpoint   {path}")
 
     t0 = time.time()
-    eng.run(rounds=args.rounds, eval_data=test,
-            eval_every=args.eval_every, verbose=True)
+    eng.run(rounds=max(args.rounds - start_round, 0), eval_data=test,
+            eval_every=args.eval_every, verbose=True, on_round=on_round)
     final = eng.evaluate(test)
     wall = time.time() - t0
 
@@ -316,6 +367,20 @@ def main(argv=None):
         else:
             print(f"  {k:<12} {v}")
 
+    if sink is not None:
+        sink.emit({"kind": "summary", **summary,
+                   "metrics": registry.snapshot()})
+        sink.close()
+        print(f"  metrics      {args.metrics_out} "
+              f"({emitted + 1} records)")
+    if args.trace_out:
+        from repro_torch.observe import summarize, write_chrome_trace
+        write_chrome_trace(recorder, args.trace_out)
+        crit = summarize(recorder)
+        print(f"  trace        {args.trace_out} "
+              f"({len(recorder.flights)} flights, "
+              f"{crit['windows']} windows, "
+              f"top straggler {crit['top_straggler']})")
     if args.history_out:
         with open(args.history_out, "w") as f:
             json.dump(eng.history, f, indent=1)

@@ -187,7 +187,11 @@ def cnn_n_units(cfg):
 
 
 def ce_and_acc(logits, y, n_classes: int):
-    onehot = F.one_hot(y.long(), n_classes).to(logits.dtype)
+    # a comparison, not F.one_hot: the same 0/1 values (an out-of-range
+    # label gives a zero row, as jax.nn.one_hot does), and no
+    # data-dependent range check, so torch.func.vmap takes it
+    onehot = (y.long()[..., None]
+              == torch.arange(n_classes, device=y.device)).to(logits.dtype)
     ce = -torch.mean(torch.sum(onehot * F.log_softmax(logits, -1), -1))
     acc = torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
     return ce, acc

@@ -1,10 +1,11 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports JAX, the reference package or ``ml_dtypes``,
 the trainer and the server import with JAX and the reference blocked,
-they run on the card unless the CPU is asked for, the flags of modules
-not ported yet raise before any work, and the MoE / MLA archs that
-slice 3 ported resolve, build and serve."""
+they run on the card unless the CPU is asked for, every trainer flag
+runs on the CPU, S²FL training of an LM still raises before any work,
+and the MoE / MLA archs that slice 3 ported resolve, build and serve."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -55,6 +56,17 @@ def test_trainer_imports_with_jax_and_reference_blocked():
             "import repro_torch.kernels.ssd_scan.ops\n"
             "import repro_torch.kernels.moe_gmm.ops\n"
             "import repro_torch.models.moe\n"
+            "import repro_torch.core.faults\n"
+            "import repro_torch.core.control\n"
+            "import repro_torch.core.fleet\n"
+            "import repro_torch.checkpoint\n"
+            "import repro_torch.checkpoint.state\n"
+            "import repro_torch.observe\n"
+            "import repro_torch.observe.trace\n"
+            "import repro_torch.observe.metrics\n"
+            "import repro_torch.observe.critical\n"
+            "import repro_torch.observe.export\n"
+            "import repro_torch.observe.history\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -76,21 +88,45 @@ def test_default_device_is_cuda_and_never_falls_back(capsys):
     assert "round" not in capsys.readouterr().out   # no training happened
 
 
-@pytest.mark.parametrize("flags", [
-    ["--fleet-size", "100"], ["--clusters", "4"],
-    ["--cluster-quorum", "0.5"], ["--fault-kill-prob", "0.1"],
-    ["--fault-plan", "plan.json"], ["--checkpoint-every", "1"],
-    ["--resume-from", "x.npz"], ["--trace-out", "t.json"],
-    ["--metrics-out", "m.jsonl"], ["--resource-aware"], ["--auto-knobs"],
-    ["--scheduler", "joint"], ["--fused-server"],
-    ["--arch", "internlm2-1.8b"],
-])
+@pytest.mark.parametrize("flags", [["--arch", "internlm2-1.8b"]])
 def test_flags_of_unported_modules_raise(flags, tmp_path, capsys):
-    with pytest.raises(NotImplementedError):
+    """S²FL training of the LM families is the one refusal left."""
+    with pytest.raises(NotImplementedError, match="later slice"):
         train.main(["--device", "cpu", *SMALL, *flags,
                     "--out", str(tmp_path / "o.json")])
     assert not (tmp_path / "o.json").exists()
     assert "round" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fleet-size", "100"], ["--clusters", "4"],
+    ["--cluster-quorum", "0.5"], ["--fault-kill-prob", "0.1"],
+    ["--fault-plan", "plan.json"], ["--checkpoint-every", "1"],
+    ["--resume-from", "checkpoints/round00001.npz"],
+    ["--trace-out", "t.json"], ["--metrics-out", "m.jsonl"],
+    ["--resource-aware"], ["--auto-knobs"], ["--scheduler", "joint"],
+    ["--fused-server"],
+])
+def test_flags_of_ported_modules_run(flags, tmp_path, monkeypatch):
+    """The 13 flag sets that raised until their modules were ported now
+    train on the CPU and write ``--out`` (and what the flag writes)."""
+    from repro_torch.core.faults import FaultPlan
+    monkeypatch.chdir(tmp_path)
+    cpu = ["--device", "cpu", *SMALL]
+    if flags[0] == "--fault-plan":
+        FaultPlan.random([0, 1], 1, seed=0, kill_prob=0.5).to_file(
+            "plan.json")
+    if flags[0] == "--resume-from":      # a snapshot of a first call
+        train.main([*cpu, "--checkpoint-every", "1"])
+        cpu += ["--rounds", "2"]
+    train.main([*cpu, *flags, "--out", "o.json"])
+    with open("o.json") as f:
+        out = json.load(f)
+    assert len(out["history"]) == (2 if flags[0] == "--resume-from" else 1)
+    wrote = {"--checkpoint-every": "checkpoints/round00001.npz",
+             "--trace-out": "t.json", "--metrics-out": "m.jsonl"}
+    if flags[0] in wrote:
+        assert (tmp_path / wrote[flags[0]]).exists()
 
 
 def test_cpu_run_when_asked(tmp_path):
