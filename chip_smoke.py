@@ -13,14 +13,20 @@ non-zero exit:
             bit-equal (q, scale, zp and x'), as rows and as lists (a
             vgg16 model leg, both feature shapes, one value, g not a
             multiple of 4, a list past the segment cap, an empty list,
-            views off 16 bytes), other float outputs within 1e-6.
+            views off 16 bytes), other float outputs within 1e-6; at
+            the LM training path's shapes (int8_lm_shapes): a bf16
+            internlm2-1.8b feature tensor (32 x 64 x 2048, 16384 rows of
+            256) through the list API to bf16 and back, bit-equal, and a
+            4-client cohort of them (65536 rows) through int8_roundtrip.
             Device time per call of the kernel and of the plain version
             (CUDA events around a run of calls that a spin kernel lets
             the host queue in full) with the L2 flushed before each call
             and warm, the time per call as the host sees it (CUDA events
             around one call on an idle card), and the bound; the int8
-            pair at vgg16's model legs and feature transfers, beside the
-            time of an empty kernel (the launch floor).
+            pair at vgg16's model legs and feature transfers and at
+            internlm2-1.8b's, beside the time of an empty kernel (the
+            launch floor); int8_roundtrip at vgg16's cohort and at
+            internlm2-1.8b's.
    int8_leg_side_by_side  one vgg16 model leg through the int8 codec as
             a per-leaf loop of list-of-one round trips and as one list
             call: device time and the host's wall per leg.
@@ -64,6 +70,28 @@ non-zero exit:
             CPU: clock, comm, splits, the ledger and the knob
             controller's lock and rejections exactly equal, losses
             within 1e-3.
+5d. train_lm  internlm2-1.8b at full width (24 layers, d_model 2048,
+            vocab 92544, 1.889 B f32 params, bf16 activations, split
+            points 3, 6, 12) through ``repro_torch.launch.train``: 2
+            rounds of 4 of 8 clients, batch 32, seq 64, int8 with error
+            feedback on the feature legs (fp32 model legs): exactly 16
+            quantize and 16 dequantize launches, no other kernel of the
+            port, finite losses, clock 3186.34285896672 and comm
+            30319706176.0; host wall a round, peak memory, the
+            evaluation's loss.
+   train_lm_profile  round 2 of that run under the profiler: device ms
+            by kernel group, idle share.
+   train_lm_fused  the same run with ``--fused-comm``: exactly 4
+            int8_roundtrip launches and none of the int8 pair, clock and
+            comm equal train_lm's, losses within 1e-3 of them.
+5e. parity_lm  reduced internlm2 (int8 on every leg, EF), zamba2 (the
+            shared attention block; fused top-k cohort path: the
+            sparse-combine kernel must launch) and deepseek (MoE + MLA;
+            ``--fused-server``, which must batch), card vs CPU: clock,
+            comm and splits exactly equal, losses within 1e-3.
+5f. lm_grad_refusal  the flash wrapper, given CUDA tensors that require
+            a gradient, must raise before it launches (the kernels have
+            no backward; training runs ``attn_impl="xla"``).
 6. lm_kernels  flash attention, the SSD scan and moe_gmm against their
             plain versions on the card (flash, f32 and bf16: the zamba2
             and deepseek MLA serving shapes, GQA with a window, D = 120,
@@ -314,6 +342,63 @@ INT8_LIST_CASES = {
 }
 
 
+# the int8 kernels at the LM training path's shapes: internlm2-1.8b's
+# bf16 features at batch 32, seq 64 (32 x 64 x 2048 values, 16384 rows of
+# 256), sent one transfer at a time through the list API, and a cohort
+# of 4 clients' features (65536 rows) through int8_roundtrip
+LM_FEATURES = (32, 64, 2048)
+LM_FEATURE_ROWS = 32 * 64 * 2048 // 256
+LM_COHORT_ROWS = 4 * LM_FEATURE_ROWS
+
+
+def bf16_valued(torch, shape, gen):
+    """Random values that bf16 holds exactly, as a CPU bf16 tensor."""
+    return (torch.randn(shape, generator=gen) * 3.0).to(torch.bfloat16)
+
+
+def check_int8_lm_shapes(torch, dev, gen) -> float:
+    """The LM path's int8 transfers against the plain versions: one bf16
+    feature tensor through ``int8_quantize_many`` and
+    ``int8_dequantize_many(dtype=bf16)`` (one launch a direction) against
+    the plain per-tensor loop with the same f32 cast and bf16 cast back,
+    q, scale, zp and the bf16 x' bit-equal; a 4-client cohort of bf16
+    features (as f32 rows) through int8_roundtrip against its plain
+    version. -> the roundtrip's max abs error."""
+    from repro_torch.kernels.comm_fused import kernel as cf
+    from repro_torch.kernels.int8_quant import kernel as iq
+    from repro_torch.kernels.int8_quant import ops as iq_ops
+    x = bf16_valued(torch, LM_FEATURES, gen).to(dev)
+    before = dict(iq.LAUNCHES)
+    [(q, s, z, shape)] = iq_ops.int8_quantize_many([x])
+    [y] = iq_ops.int8_dequantize_many([(q, s, z, shape)],
+                                      dtype=torch.bfloat16)
+    moved = {k: iq.LAUNCHES[k] - before[k] for k in before}
+    flat = x.to(torch.float32).reshape(-1)
+    [(qp, sp, zp)] = iq.int8_quantize_segments_plain([flat], [iq_ops.GROUP])
+    [yp] = iq.int8_dequantize_segments_plain([qp], [sp], [zp], [flat.numel()])
+    yp = yp.reshape(LM_FEATURES).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    if tuple(q.shape) != (LM_FEATURE_ROWS, iq_ops.GROUP) \
+            or y.dtype != torch.bfloat16 or tuple(y.shape) != LM_FEATURES:
+        fail(f"int8 LM features: q {tuple(q.shape)}, x' {y.dtype} "
+             f"{tuple(y.shape)}")
+    if not (torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(z, zp)
+            and torch.equal(y, yp)):
+        fail(f"int8 LM features: the list kernels differ from the plain "
+             f"loop: q {int((q != qp).sum())}, x' {int((y != yp).sum())} "
+             f"values")
+    if moved != {"int8_quantize": 1, "int8_dequantize": 1}:
+        fail(f"int8 LM features: launches {moved}, want one a direction")
+    xc = bf16_valued(torch, (LM_COHORT_ROWS, iq_ops.GROUP), gen).to(
+        dev, torch.float32)
+    err = float((cf.int8_roundtrip(xc) - cf.int8_roundtrip_plain(xc))
+                .abs().max())
+    emit("int8_lm_shapes", features=list(LM_FEATURES),
+         feature_rows=LM_FEATURE_ROWS, cohort_rows=LM_COHORT_ROWS,
+         features_bit_equal=True, roundtrip_max_abs_err=err)
+    return err
+
+
 def at_odd_offset(t):
     """A contiguous copy of t whose base sits one element past an
     aligned one."""
@@ -420,16 +505,19 @@ def int8_list_bound(flats, groups, quantize: bool):
 
 def int8_list_rows(torch, dev, gen):
     """The list kernels timed at the main path's lists: vgg16's model
-    legs at splits 3 (the row's own) and 2, and the feature transfers of
-    (2048, 256) and (4096, 256) rows (lists of one), beside the time of
-    an empty kernel (``torch.cuda._sleep(0)``) in the same harness, the
-    launch floor. -> {kernel name: (kern, plain, shape, bound, extra)}"""
+    legs at splits 3 (the row's own) and 2, vgg16's feature transfers of
+    (2048, 256) and (4096, 256) rows and internlm2-1.8b's of (16384, 256)
+    (bf16 values as f32; lists of one), beside the time of an empty
+    kernel (``torch.cuda._sleep(0)``) in the same harness, the launch
+    floor. -> {kernel name: (kern, plain, shape, bound, extra)}"""
     from repro_torch.kernels.int8_quant import kernel as iq
     from repro_torch.kernels.int8_quant import ops as iq_ops
     lists = {"leg_split3": vgg16_leg(dev, 3), "leg_split2": vgg16_leg(dev, 2)}
     for r in (2048, 4096):
         lists[f"features_{r}_rows"] = [
             (torch.randn(r * 256, generator=gen) * 3.0).to(dev)]
+    lists[f"features_{LM_FEATURE_ROWS}_rows"] = [
+        bf16_valued(torch, LM_FEATURE_ROWS * 256, gen).to(dev, torch.float32)]
     floor = {"launch_floor_ms": device_ms(lambda: torch.cuda._sleep(0),
                                           False, 50)}
     rows = {}
@@ -487,6 +575,8 @@ def phase_kernels(torch, dev):
         err = float((rt - cf.int8_roundtrip_plain(x)).abs().max())
         worst["int8_roundtrip"] = max(worst["int8_roundtrip"], err)
     n_lists = check_int8_lists(torch, dev, gen)
+    worst["int8_roundtrip"] = max(worst["int8_roundtrip"],
+                                  check_int8_lm_shapes(torch, dev, gen))
     for y, mask, scale in sparse_inputs(dev, gen):
         out, res = cf.sparse_combine(y, mask, scale)
         op, rp = cf.sparse_combine_plain(y, mask, scale)
@@ -501,16 +591,27 @@ def phase_kernels(torch, dev):
 
     # times at the main path's shapes: the int8 pair at its lists; the
     # fused kernels at a 4-device cohort (vgg16, batch 32, split 2: 2048
-    # group rows per device)
+    # group rows per device); int8_roundtrip also at internlm2-1.8b's
+    # cohort (4 x 16384 rows of bf16 features as f32), in the same turns
     xc = (torch.randn(8192, 256, generator=gen) * 3.0).to(dev)
+    xl = bf16_valued(torch, (LM_COHORT_ROWS, 256), gen).to(dev, torch.float32)
     y, mask, scale = sparse_inputs(dev, gen)[3]
     nc, ns = xc.numel(), y.numel()
+    lm_rt, lm_rt_plain = (lambda: cf.int8_roundtrip(xl),
+                          lambda: cf.int8_roundtrip_plain(xl))
+    p1, k1, k2, p2 = (device_ms(f, True, 20)
+                      for f in (lm_rt_plain, lm_rt, lm_rt, lm_rt_plain))
+    cohort = {f"cohort_{LM_COHORT_ROWS}_rows": {
+        "shape": [LM_COHORT_ROWS, 256], "ms": min(k1, k2),
+        "plain_ms": min(p1, p2), "warm_l2_ms": device_ms(lm_rt, False, 20),
+        "bound_ms": bound(xl.numel() * 8, xl.numel() * 9)[0],
+        "device_ms_runs": [k1, k2], "plain_device_ms_runs": [p1, p2]}}
     rows = int8_list_rows(torch, dev, gen)
     rows.update({
         "int8_roundtrip": (
             lambda: cf.int8_roundtrip(xc),
             lambda: cf.int8_roundtrip_plain(xc), (8192, 256),
-            bound(nc * 8, nc * 9), {}),
+            bound(nc * 8, nc * 9), cohort),
         "sparse_combine": (
             lambda: cf.sparse_combine(y, mask, scale),
             lambda: cf.sparse_combine_plain(y, mask, scale), (4, 524288),
@@ -671,6 +772,23 @@ TRAIN_GROUPS = (
 )
 
 
+def _grouped(events, groups_by) -> tuple:
+    """Device ms and launches by kernel group of a profile's events (by
+    name; what no group names is elementwise), and the top 10 kernels."""
+    groups = {g: 0.0 for g, _ in groups_by}
+    groups["elementwise"] = 0.0
+    launches = dict.fromkeys(groups, 0)
+    for e in events:
+        low = e.key.lower()
+        g = next((g for g, keys in groups_by
+                  if any(k in low for k in keys)), "elementwise")
+        groups[g] += e.self_device_time_total / 1e3
+        launches[g] += e.count
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    return groups, launches, [[e.key[:80], e.self_device_time_total / 1e3,
+                               e.count] for e in top]
+
+
 def phase_train_profile(torch, tmp, extra):
     """The train_int8 run again under the profiler: device ms by kernel
     group (the int8 list kernels, cuDNN's convolutions, reductions (the
@@ -686,23 +804,12 @@ def phase_train_profile(torch, tmp, extra):
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
-    groups["elementwise"] = 0.0
-    launches = dict.fromkeys(groups, 0)
-    for e in events:
-        low = e.key.lower()
-        g = next((g for g, keys in TRAIN_GROUPS
-                  if any(k in low for k in keys)), "elementwise")
-        groups[g] += e.self_device_time_total / 1e3
-        launches[g] += e.count
+    groups, launches, top = _grouped(events, TRAIN_GROUPS)
     busy = sum(groups.values())
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     emit("train_int8_profile", device_ms_by_group=groups,
          launches_by_group=launches, device_busy_ms=busy, wall_ms=wall_ms,
          idle_share=max(0.0, 1.0 - busy / wall_ms),
-         kernels_seen=len(events),
-         top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3,
-                          e.count] for e in top])
+         kernels_seen=len(events), top_kernels_ms=top)
 
 
 def phase_parity(tmp):
@@ -982,6 +1089,230 @@ def phase_parity_control(tmp):
          locked={d: out[d]["locked"] for d in out},
          rejected={d: out[d]["rejected"] for d in out},
          losses_cuda=lg, losses_cpu=lc, max_loss_diff=dl)
+
+
+# ---------------------------------- slice 9: S²FL training of the LMs
+INTERNLM = "internlm2-1.8b"
+# the full-width run: internlm2-1.8b as its config gives it (24 layers,
+# d_model 2048, vocab 92544, 1.889 B f32 params, bf16 activations),
+# split points (3, 6, 12), the trainer's seq 64 and batch 32, int8 with
+# error feedback on the feature legs; the model legs stay fp32 (int8
+# model legs with feedback would hold up to two f32 residuals per client
+# portion, ~30 GB more: the reduced-depth parity runs take them)
+LM_FULL = ["--arch", INTERNLM, "--rounds", "2", "--clients", "8",
+           "--per-round", "4", "--batch-size", "32", "--seq-len", "64",
+           "--n-train", "1000", "--alpha", "0.5", "--eval-every", "1000",
+           "--seed", "0", "--codec", "int8", "--error-feedback"]
+# the run's simulated clock and wire bytes, pinned from the first card
+# run (NVIDIA H100 80GB HBM3, 700.00 W): Eq. 1 over the analytic costs
+# and the metered bytes, which do not depend on the device
+LM_CLOCK, LM_COMM = 3186.34285896672, 30319706176.0
+# kernel groups of an LM training profile: its matmuls are cuBLAS's
+# (sm90_xmma / nvjet / cutlass kernels), its norms and softmax reductions
+LM_TRAIN_GROUPS = (
+    ("int8_kernels", ("quantize",)),
+    ("gemm", ("gemm", "cutlass", "nvjet", "xmma")),
+    ("reductions", ("reduce_kernel", "softmax")),
+    ("copies", ("memcpy", "memset", "copy")),
+)
+
+
+def phase_train_lm(torch, tmp):
+    """internlm2-1.8b at full width through ``repro_torch.launch.train``,
+    2 rounds of 4 clients, int8 + EF on the feature legs. Launches: each
+    of the 8 client-rounds (4 clients, 2 rounds, one local step, no
+    faults) sends its features up and gets their gradient back, each
+    transfer one quantize and one dequantize launch of one tensor (the
+    features ``h``; the aux scalar rides as 4 bytes); the fp32 model legs
+    are a passthrough with no launch: exactly 16 + 16. Losses finite,
+    clock and comm pinned; host wall a round, peak memory, the
+    evaluation's loss (500 sequences in batches of 256 at vocab 92544).
+
+    train_lm_profile: round 2 (the warm round) runs under the profiler:
+    device ms by kernel group (the int8 list kernels, cuBLAS's GEMMs,
+    reductions and softmaxes, copies and memsets, the other elementwise
+    kernels) beside the round's host-clock wall, and the share of it the
+    card was idle. Round 1's wall is unprofiled, round 2's profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import S2FLEngine
+    reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    box = {}
+    with Capture() as cap:
+        timed_round = S2FLEngine.run_round
+
+        def run_round(eng):
+            if len(cap.round_s) != 1:
+                return timed_round(eng)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                rec = timed_round(eng)
+            box["prof"] = prof
+            return rec
+        S2FLEngine.run_round = run_round
+        res = run_train([*LM_FULL, "--device", "cuda"], tmp, "train_lm")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    eng = cap.engines[-1]
+    cfg = eng.model.cfg
+    cap.engines.clear()
+    del eng
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launches()
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+            cfg.param_dtype) != (24, 2048, 92544, "bfloat16", "float32"):
+        fail(f"train_lm: not the full-width config {cfg}")
+    losses = [h["loss"] for h in res["history"]]
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        fail(f"train_lm: losses {losses}")
+    if not math.isfinite(res["final"]["loss"]):
+        fail(f"train_lm: non-finite eval loss {res['final']}")
+    want = {"int8_quantize": 16, "int8_dequantize": 16}
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"train_lm: {k} launched {counts[k]} times, want {v}")
+    for k in ("int8_roundtrip", "sparse_combine", "flash_attention",
+              "ssd_scan", "moe_gmm"):
+        if counts[k]:
+            fail(f"train_lm: {k} launched on the sequential int8 path")
+    if (res["clock"], res["comm"]) != (LM_CLOCK, LM_COMM):
+        fail(f"train_lm: clock {res['clock']} comm {res['comm']}, want "
+             f"{LM_CLOCK} {LM_COMM}")
+    if "prof" not in box:
+        fail("train_lm: round 2 was not profiled")
+    emit("train_lm", args=LM_FULL, launches=counts, losses=losses,
+         eval=res["final"], clock=res["clock"], comm=res["comm"],
+         splits=cap.splits, round_wall_s=cap.round_s,
+         round_profiled=[False, True], wall_s=wall, peak_mem_gb=peak_gb)
+    events = [e for e in box["prof"].key_averages()
+              if e.self_device_time_total > 0]
+    groups, by_group, top = _grouped(events, LM_TRAIN_GROUPS)
+    busy, wall_ms = sum(groups.values()), cap.round_s[1] * 1e3
+    emit("train_lm_profile", window="round 2 of train_lm",
+         device_ms_by_group=groups, launches_by_group=by_group,
+         device_busy_ms=busy, wall_ms=wall_ms,
+         idle_share=max(0.0, 1.0 - busy / wall_ms),
+         kernels_seen=len(events), top_kernels_ms=top)
+    return res, counts
+
+
+def phase_train_lm_fused(torch, tmp, seq):
+    """The train_lm run on the fused cohort path (``--fused-comm``).
+    Launches: each round stacks its cohort's 4 feature tensors into one
+    buffer and sends it up through one int8_roundtrip launch, and their 4
+    gradients back through another; the fp32 model legs launch nothing:
+    exactly 4 int8_roundtrip (2 rounds x 2 directions) and no launch of
+    the int8 pair. Clock and comm must equal train_lm's, and the losses
+    be within 1e-3 of them."""
+    reset_launches()
+    torch.cuda.empty_cache()
+    with Capture() as cap:
+        res = run_train([*LM_FULL, "--device", "cuda", "--fused-comm"],
+                        tmp, "train_lm_fused")
+    cap.engines.clear()
+    counts = launches()
+    want = {"int8_roundtrip": 4, "int8_quantize": 0, "int8_dequantize": 0}
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"train_lm_fused: {k} launched {counts[k]} times, want {v}")
+    if (res["clock"], res["comm"]) != (seq["clock"], seq["comm"]):
+        fail(f"train_lm_fused: clock {res['clock']} comm {res['comm']} != "
+             f"train_lm's {seq['clock']} {seq['comm']}")
+    dl = max(abs(a["loss"] - b["loss"])
+             for a, b in zip(seq["history"], res["history"]))
+    if not dl <= LOSS_TOL:
+        fail(f"train_lm_fused: losses differ from train_lm's by {dl}")
+    emit("train_lm_fused", args=[*LM_FULL, "--fused-comm"],
+         launches=counts, losses=[h["loss"] for h in res["history"]],
+         max_loss_diff=dl, clock=res["clock"], comm=res["comm"],
+         round_wall_s=cap.round_s)
+    return counts
+
+
+LM_SMALL = ["--reduced", "--rounds", "2", "--clients", "6",
+            "--batch-size", "8", "--seq-len", "32", "--n-train", "120",
+            "--alpha", "0.3", "--eval-every", "1000", "--seed", "0"]
+PARITY_LM = (
+    # (tag, arch, flags, kernel that must launch on the card)
+    ("dense_int8", INTERNLM,
+     ["--per-round", "3", "--codec", "int8", "--dispatch-codec", "int8",
+      "--error-feedback"], "int8_quantize"),
+    ("hybrid_fused_topk", "zamba2-1.2b",
+     ["--per-round", "3", "--fused-comm", "--codec", "topk",
+      "--error-feedback"], "sparse_combine"),
+    ("moe_fused_server", "deepseek-v2-lite-16b",
+     ["--per-round", "4", "--fused-server"], None),
+)
+
+
+def phase_parity_lm(tmp):
+    """Reduced internlm2 (int8 on every leg, EF), zamba2 (shared
+    attention; fused top-k cohort path) and deepseek (MoE + MLA; the
+    multi-group server step, which must batch) on the card and on the
+    CPU: clock, comm and splits exactly equal, losses within 1e-3; the
+    named kernel must launch on the card."""
+    out = {}
+    for tag, arch, flags, kernel in PARITY_LM:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            with Capture() as cap:
+                res = run_train(["--arch", arch, *LM_SMALL, *flags,
+                                 "--device", dev], tmp,
+                                f"parity_lm_{tag}_{dev}")
+            cap.engines.clear()
+            runs[dev] = (res, cap, launches())
+        (g, cg, lg), (c, cc, _) = runs["cuda"], runs["cpu"]
+        for k, x, y in (("clock", g["clock"], c["clock"]),
+                        ("comm", g["comm"], c["comm"]),
+                        ("splits", cg.splits, cc.splits)):
+            if x != y:
+                fail(f"parity_lm {tag}: {k} card {x} != cpu {y}")
+        if kernel is not None and lg[kernel] <= 0:
+            fail(f"parity_lm {tag}: {kernel} never launched on the card")
+        if "--fused-server" in flags and not cg.multi:
+            fail(f"parity_lm {tag}: the server step never batched")
+        losses = {d: [h["loss"] for h in r[0]["history"]]
+                  for d, r in runs.items()}
+        dl = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        if not dl <= LOSS_TOL:
+            fail(f"parity_lm {tag}: losses differ by {dl}: {losses}")
+        out[tag] = dict(arch=arch, args=flags, clock=g["clock"],
+                        comm=g["comm"], splits=cg.splits,
+                        losses_cuda=losses["cuda"], losses_cpu=losses["cpu"],
+                        max_loss_diff=dl, batched_server_calls=cg.multi,
+                        card_launches={k: v for k, v in lg.items() if v})
+    emit("parity_lm", **out)
+    return out
+
+
+def phase_lm_grad_refusal(torch, dev):
+    """A kernel has no backward: the flash wrapper, given CUDA tensors
+    that require a gradient under grad mode, must raise before it
+    launches (the same inputs under no_grad launch once)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        LAUNCHES, flash_attention_bhsd)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 64, 64), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = LAUNCHES["flash_attention"]
+    try:
+        flash_attention_bhsd(q.requires_grad_(True), k, v)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        fail("lm_grad_refusal: the flash wrapper took a gradient input")
+    if "no backward" not in msg or LAUNCHES["flash_attention"] != before:
+        fail(f"lm_grad_refusal: wrong refusal {msg!r}")
+    with torch.no_grad():
+        flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    if LAUNCHES["flash_attention"] != before + 1:
+        fail("lm_grad_refusal: the flash wrapper did not launch under "
+             "no_grad")
+    emit("lm_grad_refusal", refused=msg)
 
 
 # ------------------------------------------------- slices 2-3: the LM path
@@ -1678,6 +2009,11 @@ def main() -> int:
         phase_train_fused_server(torch, tmp)
         phase_train_service(torch, tmp)
         phase_parity_control(tmp)
+        lm_seq, lm_counts = phase_train_lm(torch, tmp)
+        lm_fused = phase_train_lm_fused(torch, tmp, lm_seq)
+        phase_parity_lm(tmp)
+        phase_lm_grad_refusal(torch, dev)
+        torch.cuda.empty_cache()
     timed.update(phase_lm_kernels(torch))
     served = phase_serve(torch, dev)
     phase_serve_parity(torch, dev)
@@ -1726,6 +2062,11 @@ def main() -> int:
         also[k] = {key: v for key, v in timed[k].items()
                    if key.startswith(("leg_", "features_", "launch_floor",
                                       "warm_l2"))}
+        also[k]["launches_train_lm"] = lm_counts[k]
+    also["int8_roundtrip"] = {
+        **{key: v for key, v in timed["int8_roundtrip"].items()
+           if key.startswith("cohort_")},
+        "launches_train_lm_fused": lm_fused["int8_roundtrip"]}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k],
                 "launches": main_path[k],

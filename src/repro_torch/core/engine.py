@@ -113,8 +113,8 @@ def _with_grad(params):
 class S2FLEngine:
     """Drives FedAvg / SFL / S²FL over a federated dataset.
 
-    data: {cid: {'x': ..., 'y': ...}} host numpy arrays; ``device``: where
-    the models train ('cuda' or 'cpu')."""
+    data: {cid: {'x'|'tokens': ..., 'y'|'labels': ...}} host numpy arrays;
+    ``device``: where the models train ('cuda' or 'cpu')."""
 
     def __init__(self, model: SplitModel, data: dict, ecfg: EngineConfig,
                  devices: Optional[list] = None,
@@ -177,12 +177,14 @@ class S2FLEngine:
         if ecfg.mode == "fedavg":
             cost = FedAvgCost(
                 lambda: flops_util.split_costs(self.model,
-                                               self.model.n_units),
+                                               self.model.n_units,
+                                               seq_len=self._seq_len()),
                 p_of=self._p_of, channel=self.channel)
         else:
             cost = MeteredCost(
                 self.channel,
-                lambda s: flops_util.split_costs(self.model, s),
+                lambda s: flops_util.split_costs(self.model, s,
+                                                 seq_len=self._seq_len()),
                 p_of=self._p_of)
         # the engine scales its REAL batches by the joint scheduler's
         # selected fracs (_batch_size_of feeds both _p_of and
@@ -232,8 +234,9 @@ class S2FLEngine:
         return self._shards[int(cid) % len(self._shards)]
 
     def _client_hist(self, cid):
-        return label_histogram(self.data[self._shard_key(cid)]["y"],
-                               self.ecfg.n_classes)
+        d = self.data[self._shard_key(cid)]
+        labels = d["y"] if "y" in d else d["labels"]
+        return label_histogram(labels, self.ecfg.n_classes)
 
     def _batch_size_of(self, cid):
         """Configured batch size scaled by the joint scheduler's selected
@@ -250,14 +253,15 @@ class S2FLEngine:
 
     def _sample_batch(self, cid):
         d = self.data[self._shard_key(cid)]
-        n = len(d["y"])
+        n = len(d["y"] if "y" in d else d["labels"])
         b = self._batch_size_of(cid)
         idx = self.rng.choice(n, size=min(b, n), replace=n < b)
         return {k: torch.as_tensor(v[idx]).to(self.device)
                 for k, v in d.items()}
 
     def _data_size(self, cid):
-        return float(len(self.data[self._shard_key(cid)]["y"]))
+        d = self.data[self._shard_key(cid)]
+        return float(len(d["y"] if "y" in d else d["labels"]))
 
     def _p_of(self, cid):
         """Samples cid actually processes per round: _sample_batch
@@ -726,19 +730,26 @@ class S2FLEngine:
             kc.observe_loss(loss)
         return self.history[-1]
 
+    def _seq_len(self):
+        if self.model.is_cnn:
+            return 0
+        any_d = next(iter(self.data.values()))
+        return any_d["tokens"].shape[1]
+
     # -------------------------------------------------------------- eval
     def evaluate(self, test_data, batch_size: int = 256):
         m = self.model
-        n = len(test_data["y"])
+        n = len(test_data["y"] if "y" in test_data else test_data["labels"])
         correct, total, loss_sum = 0.0, 0, 0.0
         with torch.no_grad():
             for i in range(0, n, batch_size):
                 batch = {k: torch.as_tensor(v[i:i + batch_size])
                          .to(self.device) for k, v in test_data.items()}
                 l, met = m.full_loss(self.params, batch, train=False)
-                bsz = len(batch["y"])
+                bsz = len(next(iter(batch.values())))
                 loss_sum += float(l) * bsz
-                correct += float(met["acc"]) * bsz
+                if "acc" in met:
+                    correct += float(met["acc"]) * bsz
                 total += bsz
         return {"loss": loss_sum / total,
                 "acc": correct / total if correct else None}

@@ -102,6 +102,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need a backward the kernel does not
+    have: grad mode on and any input requiring a gradient. Its output
+    would carry no ``grad_fn`` and the weights before it would quietly
+    get no gradient. The reference's kernels have no gradient either, so
+    training runs the model with ``attn_impl="xla"``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward, and an input requires a "
+            f"gradient; train with attn_impl=\"xla\" (the plain path)")
+
+
 def stream_ptr(t) -> int:
     """The current CUDA stream of t's device, as the C entries take it."""
     return torch.cuda.current_stream(t.device).cuda_stream

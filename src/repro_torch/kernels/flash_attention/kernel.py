@@ -9,9 +9,10 @@ On a CUDA tensor the wrapper launches one of the hand-written Hopper
 kernels (``csrc/flash_attention.cu``) or raises; ``_path`` picks it from
 the dtype, the head dims and the alignment alone. On a CPU tensor it
 runs the plain version beside it, dense masked softmax attention (the
-reference's ``flash_attention/ref.py``). ``LAUNCHES["flash_attention"]``
-counts every kernel launch, ``LAUNCHES["flash_attention_<path>"]`` those
-of each path.
+reference's ``flash_attention/ref.py``), which stays differentiable; the
+wrapper refuses a gradient on either device (``_build.refuse_grad``).
+``LAUNCHES["flash_attention"]`` counts every kernel launch,
+``LAUNCHES["flash_attention_<path>"]`` those of each path.
 """
 from __future__ import annotations
 
@@ -120,8 +121,11 @@ def _aligned(tensors, strides) -> bool:
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     """Kernel wrapper of ``attention_plain``: q (B,H,S,D), k (B,K,T,D),
     v (B,K,T,Dv), any strides over the first three dims (the last is
-    unit on the card). Returns a contiguous (B,H,S,Dv) tensor."""
+    unit on the card). Returns a contiguous (B,H,S,Dv) tensor. Refuses
+    inputs that require a gradient under grad mode, on the CPU too: the
+    kernel has no backward."""
     _check(q, k, v)
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window)
     B, H, S, D = q.shape

@@ -106,8 +106,10 @@ def _aligned(tensors) -> bool:
 
 
 def moe_gmm(x, wg, wu, wd, *, act: str = "silu"):
-    """Kernel wrapper of ``moe_gmm_plain``."""
+    """Kernel wrapper of ``moe_gmm_plain``; refuses inputs that require a
+    gradient under grad mode, on the CPU too (no backward)."""
     _check(x, wg, wu, wd, act)
+    _build.refuse_grad("moe_gmm", x, wg, wu, wd)
     if x.device.type == "cpu":
         return moe_gmm_plain(x, wg, wu, wd, act=act)
     x, wg, wu, wd = (t.contiguous() for t in (x, wg, wu, wd))

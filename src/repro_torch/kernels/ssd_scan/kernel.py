@@ -176,8 +176,10 @@ def lookback_scratch(b: int, h: int, p: int, n: int) -> int:
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
-    """Kernel wrapper of ``ssd_scan_plain``."""
+    """Kernel wrapper of ``ssd_scan_plain``; refuses inputs that require
+    a gradient under grad mode, on the CPU too (no backward)."""
     tensors = _check(x, dt, A, B, C, chunk, initial_state)
+    _build.refuse_grad("ssd_scan", *tensors)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                               initial_state=initial_state)

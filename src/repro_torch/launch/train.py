@@ -5,10 +5,16 @@ Usage:
       --mode s2fl --rounds 50 --alpha 0.5 --codec int8
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch resnet8 --rounds 3 --n-train 240 --clients 6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+      --rounds 2 --clients 8 --per-round 4 --codec int8 --error-feedback
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch internlm2-1.8b --reduced --rounds 2 --n-train 120 --seq-len 16
 
 The parser is the reference trainer's, flag for flag, and every flag
-works on the CNN families. S²FL training of the LM families is a later
-slice of the port: ``--arch <LM>`` raises before any work is done.
+works on the CNN and the LM families. An LM trains on the plain
+(differentiable) attention, SSM and expert paths, ``attn_impl="xla"``
+as in the reference; ``--reduced`` cuts an LM config to its CPU-sized
+variant (``make_reduced``) and leaves a CNN as it is.
 
 Restartable service loop: ``--checkpoint-every N`` snapshots the FULL
 training state (model + driver timeline + channel + scheduler + rng —
@@ -25,22 +31,31 @@ import json
 import os
 import time
 
-from repro_torch.configs import (CNNConfig, CommConfig, DriverConfig,
-                                 get_config)
+from repro_torch.configs import (CommConfig, DriverConfig, get_config,
+                                 make_reduced)
 from repro_torch.core.engine import EngineConfig, S2FLEngine
 from repro_torch.data.partition import federate
-from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.data.synthetic import make_image_dataset, make_lm_dataset
 from repro_torch.models import SplitModel
 
 
 def build_data(cfg, *, n_train: int, n_test: int, n_clients: int, alpha,
-               seed: int = 0):
-    train = make_image_dataset(n_train, n_classes=cfg.n_classes,
-                               image_size=cfg.image_size, seed=seed)
-    test = make_image_dataset(n_test, n_classes=cfg.n_classes,
-                              image_size=cfg.image_size, seed=seed + 1)
+               seq_len: int, seed: int = 0):
+    if getattr(cfg, "arch_type", "") == "cnn" or hasattr(cfg, "family"):
+        train = make_image_dataset(n_train, n_classes=cfg.n_classes,
+                                   image_size=cfg.image_size, seed=seed)
+        test = make_image_dataset(n_test, n_classes=cfg.n_classes,
+                                  image_size=cfg.image_size, seed=seed + 1)
+        n_classes = cfg.n_classes
+    else:
+        vocab = min(cfg.vocab_size, 256)
+        train = make_lm_dataset(n_train, seq_len=seq_len, vocab=vocab,
+                                seed=seed)
+        test = make_lm_dataset(n_test, seq_len=seq_len, vocab=vocab,
+                               seed=seed + 1)
+        n_classes = 10
     fed = federate(train, n_clients, alpha=alpha, seed=seed)
-    return fed, test, cfg.n_classes
+    return fed, test, n_classes
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -240,12 +255,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = get_config(args.arch)
-    if not isinstance(cfg, CNNConfig):   # every LM arch, MoE / MLA too
-        raise NotImplementedError(
-            f"--arch {args.arch}: S²FL training of the LM families is not "
-            f"yet ported (a later slice); serve it with "
-            f"repro_torch.launch.serve")
-    # --reduced is a no-op for the CNN families, as in the reference
+    if args.reduced and not hasattr(cfg, "family"):
+        cfg = make_reduced(cfg)
+    model = SplitModel(cfg)
+    fed, test, n_classes = build_data(
+        cfg, n_train=args.n_train, n_test=max(500, args.n_train // 8),
+        n_clients=args.clients, alpha=args.alpha, seq_len=args.seq_len,
+        seed=args.seed)
 
     ccfg = CommConfig(codec=args.codec, grad_codec=args.grad_codec,
                       dispatch_codec=args.dispatch_codec,
@@ -277,13 +293,8 @@ def main(argv=None):
         local_steps=args.local_steps, lr=args.lr, seed=args.seed,
         use_balance=not args.no_balance, use_sliding=not args.no_sliding,
         scheduler=args.scheduler, batch_fracs=fracs,
-        n_classes=cfg.n_classes, comm=ccfg, driver=dcfg,
+        n_classes=n_classes, comm=ccfg, driver=dcfg,
         fused_comm=args.fused_comm, fused_server=args.fused_server)
-
-    model = SplitModel(cfg)
-    fed, test, _ = build_data(
-        cfg, n_train=args.n_train, n_test=max(500, args.n_train // 8),
-        n_clients=args.clients, alpha=args.alpha, seed=args.seed)
 
     # churn: an explicit plan file wins; otherwise a seeded random
     # process over the federation's cids (deterministic per seed, so a

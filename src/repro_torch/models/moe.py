@@ -63,7 +63,7 @@ def positions_in_expert(flat_e, E: int):
         sorted_e, torch.arange(E, device=dev).expand(G, E).contiguous())
     rank_sorted = (torch.arange(N, device=dev)
                    - torch.gather(starts, 1, sorted_e))
-    return torch.empty_like(flat_e).scatter_(1, order, rank_sorted)
+    return torch.empty_like(flat_e).scatter(1, order, rank_sorted)
 
 
 def _dispatch_combine(cfg, p, xt, *, capacity_factor: float):
@@ -81,10 +81,12 @@ def _dispatch_combine(cfg, p, xt, *, capacity_factor: float):
     topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
-    slab = torch.arange(G, device=dev)[:, None] * E
-    counts = torch.bincount((topi.reshape(G, -1) + slab).reshape(-1),
-                            minlength=G * E).reshape(G, E)
-    density = counts.to(torch.float32) / (T * k)
+    # (a scatter-add of ones, as the reference's .at[].add: torch.func.vmap
+    # has no batching rule for bincount)
+    counts = torch.zeros((G, E), dtype=torch.float32, device=dev).scatter_add(
+        1, topi.reshape(G, -1), torch.ones(topi.reshape(G, -1).shape,
+                                           dtype=torch.float32, device=dev))
+    density = counts / (T * k)
     aux = (E * torch.sum(density * gates.mean(1), dim=-1)
            * cfg.router_aux_coef)
 
@@ -99,10 +101,11 @@ def _dispatch_combine(cfg, p, xt, *, capacity_factor: float):
     safe_pos = torch.where(keep, flat_pos, C - 1)
     g_idx = torch.arange(G, device=dev)[:, None].expand(G, N)
     x_rep = xt.repeat_interleave(k, dim=1)               # (G, T*k, d)
-    exp_in = torch.zeros((G, E, C, d), dtype=xt.dtype, device=dev)
-    exp_in.index_put_((g_idx, flat_e, safe_pos),
-                      torch.where(keep[..., None], x_rep, 0).to(xt.dtype),
-                      accumulate=True)
+    # out of place: torch.func.vmap (the multi-group server step) cannot
+    # scatter a batched source into this unbatched buffer in place
+    exp_in = torch.zeros((G, E, C, d), dtype=xt.dtype, device=dev).index_put(
+        (g_idx, flat_e, safe_pos),
+        torch.where(keep[..., None], x_rep, 0).to(xt.dtype), accumulate=True)
 
     # the slabs' buckets of one expert side by side: (E, G*C, d), one
     # expert FFN call for all slabs (rows are independent)

@@ -12,13 +12,14 @@ are the reference's kernel tolerances (tests/test_kernels.py): flash
 atol 2e-5 in f32 and 2e-2 in bf16; ssd (atol 2e-4, rtol 1e-5) in f32
 and (0.1, 3e-2) in bf16; moe_gmm atol 1e-5 with an f32 output and 2e-2
 with a bf16 one; the int8 quantize / dequantize pair bit-equal (q, scale,
-zp and the dequantized values)."""
+zp and the dequantized values); int8_roundtrip within 1e-6."""
 import math
 
 import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.comm_fused import kernel as cf
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.int8_quant import kernel as iq
 from repro_torch.kernels.int8_quant import ops as iq_ops
@@ -381,3 +382,51 @@ def test_int8_segments_match_plain(card, name):
         == launches
     for o, r, n in zip(out, ref, numels):
         assert o.shape == (n,) and torch.equal(o, r)
+
+
+# the int8 kernels at the LM training path's shapes: internlm2-1.8b's
+# bf16 features at batch 32, seq 64 (16384 rows of 256) and a cohort of
+# 4 clients' features (65536 rows) on the fused path
+LM_FEATURES = (32, 64, 2048)
+
+
+def _bf16_valued(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * 3.0).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_int8_lm_features_bf16_match_plain(card):
+    """A bf16 feature tensor through the list API (f32 cast, one launch a
+    direction, bf16 back) against the plain per-tensor loop with the
+    same casts: q, scale, zp and the bf16 x' bit-equal."""
+    x = _bf16_valued(LM_FEATURES, 19).to(card)
+    before = dict(iq.LAUNCHES)
+    [(q, s, z, shape)] = iq_ops.int8_quantize_many([x])
+    [y] = iq_ops.int8_dequantize_many([(q, s, z, shape)],
+                                      dtype=torch.bfloat16)
+    flat = x.to(torch.float32).reshape(-1)
+    [(qp, sp, zp)] = iq.int8_quantize_segments_plain([flat], [iq_ops.GROUP])
+    [yp] = iq.int8_dequantize_segments_plain([qp], [sp], [zp], [flat.numel()])
+    torch.cuda.synchronize()
+    assert {k: iq.LAUNCHES[k] - before[k] for k in before} \
+        == {"int8_quantize": 1, "int8_dequantize": 1}
+    assert tuple(q.shape) == (16384, 256) and shape == LM_FEATURES
+    assert torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(z, zp)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, yp.reshape(LM_FEATURES).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8192, 65536])
+def test_int8_roundtrip_cohort_matches_plain(card, rows):
+    """int8_roundtrip at vgg16's cohort (8192 rows) and internlm2-1.8b's
+    (65536 rows of bf16 features as f32) against its plain version,
+    within 1e-6."""
+    x = _bf16_valued((rows, 256), rows).to(card, torch.float32)
+    before = cf.LAUNCHES["int8_roundtrip"]
+    out = cf.int8_roundtrip(x)
+    ref = cf.int8_roundtrip_plain(x)
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES["int8_roundtrip"] == before + 1
+    assert float((out - ref).abs().max()) <= 1e-6

@@ -1,6 +1,7 @@
 """Parameter trees and Eq.-1 accounting of the port against the
 reference: leaf order of the port's flatten, the numpy<->tensor bridge,
-and the literal per-unit cost table against the live XLA cost analysis."""
+the literal per-unit cost table against the live XLA cost analysis, and
+the analytic transformer costs of every LM config, bit for bit."""
 import jax
 import numpy as np
 import pytest
@@ -8,7 +9,7 @@ import pytest
 from repro.configs import get_config as ref_get_config
 from repro.models import SplitModel as RefModel
 from repro.utils import flops as ref_flops
-from repro_torch.configs import get_config
+from repro_torch.configs import CNNConfig, get_config, list_configs
 from repro_torch.models import SplitModel
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.utils import flops
@@ -53,16 +54,47 @@ def test_flops_table_matches_live_reference(name):
 
 
 def test_lm_families_refused():
-    """Slice 3 ported the MoE / MLA families, so the refusal this test
-    held is gone (the name is kept): deepseek-v2-lite-16b now resolves
-    and builds, and its full-width segment parameter counts equal the
-    reference's (15.7 B in all). What the LM families still lack is the
-    Eq.-1 cost table of S²FL training (a later slice): ``split_costs``
-    refuses an LM."""
+    """deepseek-v2-lite-16b's full-width segment parameter counts equal
+    the reference's (15.7 B in all) and so does its ``split_costs``; a
+    CNN with no unit-cost table is refused."""
     name = "deepseek-v2-lite-16b"
     rm, tm = RefModel(ref_get_config(name)), SplitModel(get_config(name))
     counts = flops.segment_param_counts(tm)
     assert counts == ref_flops.segment_param_counts(rm)
     assert sum(counts.values()) == 15_706_484_224
+    assert flops.split_costs(tm, 1, seq_len=64) \
+        == ref_flops.split_costs(rm, 1, seq_len=64)
+    narrow = CNNConfig(name="vgg-narrow", family="vgg",
+                       stages=((8, 1), (16, 2)))
     with pytest.raises(KeyError, match="no unit-cost table"):
-        flops.split_costs(tm, 1)
+        flops.split_costs(SplitModel(narrow), 1)
+
+
+LM_CONFIGS = [n for n in list_configs()
+              if not isinstance(get_config(n), CNNConfig)]
+
+
+@pytest.mark.parametrize("name", LM_CONFIGS)
+def test_lm_split_costs_bit_equal_to_reference(name):
+    """Every LM config at full width, seq 64: the Eq.-1 inputs at splits
+    1, the middle and n_layers - 1, and ``model_flops_6nd``, equal the
+    reference's floats bit for bit (the simulated clock is built from
+    them)."""
+    rcfg, tcfg = ref_get_config(name), get_config(name)
+    rm, tm = RefModel(rcfg), SplitModel(tcfg)
+    n = tcfg.n_layers
+    for s in (1, n // 2, n - 1):
+        assert flops.split_costs(tm, s, seq_len=64) \
+            == ref_flops.split_costs(rm, s, seq_len=64), (name, s)
+    assert flops.model_flops_6nd(tcfg, 4096) \
+        == ref_flops.model_flops_6nd(rcfg, 4096)
+
+
+def test_internlm2_split_costs_pinned():
+    """internlm2-1.8b at split 3, seq 64: the numbers the full-width card
+    run's simulated clock is built from."""
+    c = flops.split_costs(SplitModel(get_config("internlm2-1.8b")), 3,
+                          seq_len=64)
+    assert (c["w_size"], c["wc_size"], c["feat_size"], c["fc"], c["fs"]) \
+        == (1889110016.0, 378286080.0, 131072.0, 72628568064.0,
+            581179539456.0)

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports JAX, the reference package or ``ml_dtypes``,
-the trainer and the server import with JAX and the reference blocked,
-they run on the card unless the CPU is asked for, every trainer flag
-runs on the CPU, S²FL training of an LM still raises before any work,
-and the MoE / MLA archs that slice 3 ported resolve, build and serve."""
+the trainer, the server and the examples import with JAX and the
+reference blocked, they run on the card unless the CPU is asked for,
+every trainer flag runs on the CPU, S²FL training of an LM runs on the
+CPU, and the MoE / MLA archs resolve, build, serve and train."""
 import ast
 import json
 import os
@@ -67,6 +67,10 @@ def test_trainer_imports_with_jax_and_reference_blocked():
             "import repro_torch.observe.critical\n"
             "import repro_torch.observe.export\n"
             "import repro_torch.observe.history\n"
+            "import repro_torch.examples.federated_lm\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.paper_repro\n"
+            "import repro_torch.examples.serve_decode\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -88,14 +92,17 @@ def test_default_device_is_cuda_and_never_falls_back(capsys):
     assert "round" not in capsys.readouterr().out   # no training happened
 
 
-@pytest.mark.parametrize("flags", [["--arch", "internlm2-1.8b"]])
+@pytest.mark.parametrize("flags", [["--arch", "internlm2-1.8b",
+                                    "--reduced"]])
 def test_flags_of_unported_modules_raise(flags, tmp_path, capsys):
-    """S²FL training of the LM families is the one refusal left."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train.main(["--device", "cpu", *SMALL, *flags,
-                    "--out", str(tmp_path / "o.json")])
-    assert not (tmp_path / "o.json").exists()
-    assert "round" not in capsys.readouterr().out
+    """An LM arch trains a round on the CPU and writes ``--out``, with
+    no accuracy (an LM's evaluation has none)."""
+    train.main(["--device", "cpu", *SMALL, *flags,
+                "--out", str(tmp_path / "o.json")])
+    with open(tmp_path / "o.json") as f:
+        out = json.load(f)
+    assert len(out["history"]) == 1 and out["final"]["acc"] is None
+    assert "round" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [
@@ -154,18 +161,17 @@ def test_server_cpu_run_when_asked(capsys):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
 def test_moe_and_mla_archs_raise_naming_slice_3(arch, capsys):
-    """Slice 3 ported these archs, so the refusal this test held is gone
-    (the name is kept): the id resolves, the CLI serves its reduced
-    variant on the CPU, and S²FL training of an LM still raises, naming
-    the later slice."""
+    """The MoE / MLA arch id resolves, the CLI serves its reduced variant
+    on the CPU, and the trainer trains the reduced variant a round on
+    the CPU."""
     cfg = get_config(arch)
     assert cfg.arch_type == "moe" and "moe" in {f for _, f in cfg.pattern()}
     out = serve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
                       "--prompt-len", "8", "--gen", "3"])
     assert tuple(out.shape) == (2, 3)
     assert "generated" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train.main(["--device", "cpu", "--arch", arch])
+    train.main(["--device", "cpu", *SMALL, "--arch", arch, "--reduced"])
+    assert "round" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("field", [

@@ -190,6 +190,29 @@ def test_int8_many_bit_equal_to_reference_per_leaf(name):
         np.testing.assert_array_equal(y.numpy(), np.asarray(y_r))
 
 
+def test_int8_many_bf16_features_bit_equal_to_reference():
+    """bf16 features (an LM's cut-layer activations) through the list API
+    and back to bf16 against the reference's public ops on the same bf16
+    values: the reference quantizes in f32 and dequantizes to the
+    payload's dtype; q, scale, zp (the wire bytes) and the bf16 tensor
+    bit-equal."""
+    x = torch.from_numpy(_leaves([(4, 8, 96)], 5)[0]).to(torch.bfloat16)
+    xr = jnp.asarray(x.to(torch.float32).numpy()).astype(jnp.bfloat16)
+    [(q, s, z, shp)] = tiq_ops.int8_quantize_many([x])
+    [y] = tiq_ops.int8_dequantize_many([(q, s, z, shp)],
+                                       dtype=torch.bfloat16)
+    q_r, s_r, z_r, shp_r = ref_int8_ops.int8_quantize(xr)
+    assert shp == tuple(shp_r) and tuple(q.shape) == (12, 256)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_r))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    np.testing.assert_array_equal(z.numpy(), np.asarray(z_r))
+    y_r = ref_int8_ops.int8_dequantize(q_r, s_r, z_r, shp_r,
+                                       dtype=jnp.bfloat16)
+    assert y.dtype == torch.bfloat16 and y_r.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        y.to(torch.float32).numpy(), np.asarray(y_r.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
 def test_list_buffers_keep_each_tensor_on_16_bytes(dtype):
     """On the card a list's outputs are cut from one buffer: each

@@ -1,10 +1,17 @@
-"""Shared runner for the engine parity tests (tests/test_torch_engine*.py).
+"""Shared runner for the engine parity tests (tests/test_torch_engine*.py,
+tests/test_torch_lm_train*.py).
 
 The reference's golden engine config (tests/test_error_feedback.py):
 resnet8 S²FL, 240 samples / 6 clients / alpha=0.3 / seed 0, 3 rounds of
 4 clients, batch 16, group 2, default plan. Both engines run live from
 the same initial parameters (the reference's, carried across as numpy
-arrays), on the same numpy data and the same numpy RNG streams."""
+arrays), on the same numpy data and the same numpy RNG streams.
+
+``make_lm_pair`` is the LM counterpart: a reduced LM config on the
+reference's synthetic token data (per-domain bigram chains, the domain
+as the balance label), seq 32, 120 samples / 6 clients / alpha 0.3, 3
+clients a round, batch 8."""
+import dataclasses
 import math
 
 import jax
@@ -14,12 +21,13 @@ import torch
 import repro.configs.base as rcb
 import repro_torch.configs.base as tcb
 from repro.configs import get_config as ref_get_config
+from repro.configs import make_reduced as ref_make_reduced
 from repro.core.engine import EngineConfig as RefEngineConfig
 from repro.core.engine import S2FLEngine as RefEngine
 from repro.data.partition import federate
-from repro.data.synthetic import make_image_dataset
+from repro.data.synthetic import make_image_dataset, make_lm_dataset
 from repro.models import SplitModel as RefModel
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, make_reduced
 from repro_torch.core.engine import EngineConfig, S2FLEngine
 from repro_torch.models import SplitModel
 from repro_torch.models.convert import params_from_numpy
@@ -84,6 +92,34 @@ def make_pair(mode="s2fl", rounds=3, comm=None, driver=None,
                                    driver=tcb.DriverConfig(**driver),
                                    **common),
                       device="cpu", **extras(port_faults, port_observe))
+    port.params = params_from_numpy(
+        jax.tree.map(np.asarray, ref.params), device="cpu")
+    _track_rounds(ref)
+    _track_rounds(port)
+    return ref, port
+
+
+def make_lm_pair(arch, mode="s2fl", rounds=2, comm=None, dtype=None,
+                 **engine_kw):
+    """-> (reference engine, port engine) on ``make_reduced(arch)`` (float32;
+    ``dtype`` replaces the activations' dtype on both), from the same
+    initial params, not yet run; both record their rounds' splits."""
+    rcfg = ref_make_reduced(ref_get_config(arch))
+    tcfg = make_reduced(get_config(arch))
+    if dtype is not None:
+        rcfg = dataclasses.replace(rcfg, dtype=dtype)
+        tcfg = dataclasses.replace(tcfg, dtype=dtype)
+    comm = comm or {}
+    ds = make_lm_dataset(120, seq_len=32, vocab=min(tcfg.vocab_size, 256),
+                         seed=0)
+    fed = federate(ds, 6, alpha=0.3, seed=0)
+    common = dict(mode=mode, rounds=rounds, batch_size=8, group_size=2,
+                  seed=0, lr=0.05, **{"clients_per_round": 3, **engine_kw})
+    ref = RefEngine(RefModel(rcfg), fed,
+                    RefEngineConfig(comm=rcb.CommConfig(**comm), **common))
+    port = S2FLEngine(SplitModel(tcfg), fed,
+                      EngineConfig(comm=tcb.CommConfig(**comm), **common),
+                      device="cpu")
     port.params = params_from_numpy(
         jax.tree.map(np.asarray, ref.params), device="cpu")
     _track_rounds(ref)
