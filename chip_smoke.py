@@ -144,9 +144,36 @@ non-zero exit:
 10. serve_moe_parity  reduced deepseek (a dense and an MoE layer, MLA)
             in float32, card vs CPU: prefill and decode logits within
             1e-4, both sides stepped with the CPU's greedy tokens.
+11. spmd_train  a process group of one rank (NCCL, a file store) and a
+            1 x 1 DeviceMesh; internlm2-1.8b at full width through
+            ``repro_torch.launch.steps.build_train_step`` at train_4k's
+            seq 4096, batch 8 (the one cut: the global batch is 256), 4
+            groups, split 12, lr 0.01, remat forced by the builder: two
+            steps. Step 1 equals the host-path step (``dp_axes=None``)
+            bit for bit or within 1e-6 relative, and a hand-written loop
+            over the groups within 1e-4; the first loss is near
+            ln(92544). Step wall, tokens/s, peak above the inputs. Then
+            remat off / full / dots at seq 1024 (each once untimed, then
+            timed): losses and params equal within 1e-6, each one's peak
+            and wall.
+12. spmd_serve  zamba2-1.2b at full width (attn_impl="pallas") through
+            ``build_prefill_step`` at prefill_32k (seq 32768, batch 2:
+            the cut): exactly 6 flash and 32 SSD launches, all on wgmma;
+            the last-token logits within 2e-2 of the largest of the same
+            step under attn_impl="xla"; prefill wall, peak. Then
+            ``build_decode_step`` at decode_32k (cache 32768, batch 16:
+            the cut; 4 steps) and long_500k (cache 524288, batch 1,
+            uncut; 2 steps) after a 512-token prefill. The process group
+            ends here.
+13. kernel_32k  flash at (B*H 64, 32768, 64) causal and the SSD scan at
+            x (2, 32768, 64, 64), state 64, chunk 128, alone: each
+            against its plain version (flash's per (batch, head) slice),
+            cold device time, the plain version's, the bound and, for
+            flash, SDPA's.
 
 Then a ``kernels`` line (all seven kernels with their launch counts on
-the main path, times and bounds), the card's name and power limit as
+the main path, times and bounds; the flash and SSD rows carry their
+``prefill_32k`` readings), the card's name and power limit as
 nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1970,6 +1997,466 @@ def phase_serve_moe_parity(torch, dev):
     serve_parity(torch, dev, cfg, "serve_moe_parity")
 
 
+
+# ------------------------------------------------------------ SPMD layer
+# the SPMD steps run on a 1 x 1 DeviceMesh over a process group of one
+# rank (NCCL); the only cut of each path is its batch, to one card's share
+SPMD_TRAIN_BATCH = 8               # train_4k's global batch is 256
+SPMD_GROUPS, SPMD_LR = 4, 0.01
+SPMD_LOOP_TOL = 1e-4               # mesh step vs a hand-written group loop
+SPMD_PLAIN_TOL = 1e-6              # mesh step vs the host path, relative
+REMAT_SEQ = 1024                   # remat off does not fit at 4096
+SPMD_PREFILL_BATCH = 2             # prefill_32k's global batch is 32
+SPMD_DECODE_BATCH = 16             # decode_32k's global batch is 128
+SPMD_PROMPT = 512                  # prompt before the decode steps
+SERVE_BF16_TOL = 2e-2              # pallas vs xla bf16 logits, relative
+                                   # to the largest |logit|
+
+
+def spmd_mesh(torch, tmp: Path):
+    """One rank over NCCL (a file store, no port) and a 1 x 1 mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'pg'}",
+                            rank=0, world_size=1)
+    return make_host_mesh(1, 1, device="cuda")
+
+
+def _tree_rel(torch, a, b) -> float:
+    """max |a - b| over max |b|, leaf by leaf (DTensors as local)."""
+    from repro_torch.utils.tree import tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        y = y.to_local() if hasattr(y, "to_local") else y
+        d = float((x.float() - y.float()).abs().max())
+        worst = max(worst, d / max(float(y.float().abs().max()), 1e-30))
+    return worst
+
+
+def _tree_abs(torch, a, b) -> float:
+    from repro_torch.utils.tree import tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def _timed(torch, fn):
+    """-> (result, host wall s, peak GB above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.time() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def group_loop_step(torch, cfg, params, batch, split, n_groups, lr):
+    """The E=1 reference of the fused step, by hand (the counterpart of
+    the reference's ``tests/test_engine.py:152``): client forward,
+    ``h[perm]``, a loop over the groups' server losses, their mean plus
+    the client's aux, autograd, ``w - lr * g``."""
+    from repro_torch.models import SplitModel
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    model = SplitModel(cfg)
+    leaves, skel = tree_flatten(params)
+    leaves = [w.detach().requires_grad_(True) for w in leaves]
+    p = tree_unflatten(skel, leaves)
+    perm = batch["perm"].long()
+    feats = model.client_forward(p, {"tokens": batch["tokens"]}, split)
+    h, t_p, l_p = feats["h"][perm], batch["tokens"][perm], \
+        batch["labels"][perm]
+    gb = h.shape[0] // n_groups
+    zero = torch.zeros((), device=h.device)
+    losses = [model.server_loss(p, {"h": h[g * gb:(g + 1) * gb],
+                                    "aux": zero},
+                                {"tokens": t_p[g * gb:(g + 1) * gb],
+                                 "labels": l_p[g * gb:(g + 1) * gb]},
+                                split)[0] for g in range(n_groups)]
+    loss = torch.stack(losses).mean() + feats["aux"]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with torch.no_grad():
+        new = [w.detach() if g is None else w.detach() - lr * g
+               for w, g in zip(leaves, grads)]
+    return tree_unflatten(skel, new), float(loss.detach())
+
+
+def phase_spmd_train(torch, dev, mesh):
+    """internlm2-1.8b at full width through ``build_train_step`` at
+    train_4k's seq 4096 (batch 8: the one cut), 4 groups, split
+    ``default_split`` (12), lr 0.01, remat forced by the builder: two
+    steps on the mesh. Step 1 against the same step on the host path
+    (``dp_axes=None``: bit-equal or within 1e-6 relative) and against a
+    hand-written loop over the groups (within 1e-4); the first loss near
+    ln(vocab). Then remat off / full / dots at seq 1024: equal losses
+    and params within 1e-6; each one's peak and wall."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.core.round_step import make_s2fl_train_step
+    from repro_torch.launch.steps import (SHAPES, build_train_step,
+                                          default_split, train_config)
+    from repro_torch.models import SplitModel
+    from repro_torch.models.sharding import model_param_specs, shard_params
+    cfg = get_config(INTERNLM)
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+            cfg.param_dtype) != (24, 2048, 92544, "bfloat16", "float32"):
+        fail(f"spmd_train: not the full-width config {cfg}")
+    seq, B = SHAPES["train_4k"]["seq"], SPMD_TRAIN_BATCH
+    step, (_, bpl), _, _ = build_train_step(cfg, mesh, n_groups=SPMD_GROUPS,
+                                            lr=SPMD_LR)
+    tcfg = train_config(cfg, mesh)
+    split = default_split(tcfg)
+    if not tcfg.remat or split != 12:
+        fail(f"spmd_train: remat {tcfg.remat}, split {split}")
+    gen = torch.Generator().manual_seed(4)
+
+    def batch(s):
+        return {"tokens": torch.randint(0, cfg.vocab_size, (B, s),
+                                        generator=gen, dtype=torch.int32)
+                .to(dev),
+                "labels": torch.randint(0, cfg.vocab_size, (B, s),
+                                        generator=gen, dtype=torch.int32)
+                .to(dev),
+                "perm": torch.randperm(B, generator=gen)
+                .to(torch.int32).to(dev)}
+
+    def on_mesh(b):
+        return {k: distribute_tensor(v, mesh, bpl[k]) for k, v in b.items()}
+    params = SplitModel(tcfg).init(0, device=dev, draw_on_device=True)
+    torch.cuda.synchronize()
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    sharded = shard_params(params, model_param_specs(tcfg, mesh), mesh)
+    b1, b2 = batch(seq), batch(seq)
+    (new1, l1), wall1, peak1 = _timed(torch, lambda: step(sharded,
+                                                          on_mesh(b1)))
+    plain = make_s2fl_train_step(tcfg, split, SPMD_GROUPS, SPMD_LR)
+    (p1, pl1), plain_wall, plain_peak = _timed(torch,
+                                               lambda: plain(params, b1))
+    l1 = float(l1.full_tensor())
+    loss_rel = abs(l1 - float(pl1)) / abs(float(pl1))
+    params_rel = _tree_rel(torch, new1, p1)
+    bit_equal = loss_rel == 0.0 and params_rel == 0.0
+    del p1
+    torch.cuda.empty_cache()
+    (loop_new, loop_loss), loop_wall, _ = _timed(
+        torch, lambda: group_loop_step(torch, tcfg, params, b1, split,
+                                       SPMD_GROUPS, SPMD_LR))
+    loop_params_abs = _tree_abs(torch, new1, loop_new)
+    loop_loss_abs = abs(l1 - loop_loss)
+    del loop_new
+    torch.cuda.empty_cache()
+    (new2, l2), wall2, peak2 = _timed(torch, lambda: step(new1, on_mesh(b2)))
+    l2 = float(l2.full_tensor())
+    del new1, new2
+    torch.cuda.empty_cache()
+    ln_v = math.log(cfg.vocab_size)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "seq": seq,
+           "batch": B, "cut": "global batch 256 -> 8",
+           "groups": SPMD_GROUPS, "split": split, "lr": SPMD_LR,
+           "remat_forced": tcfg.remat, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                 mesh.shape)),
+           "losses": [l1, l2], "ln_vocab": ln_v,
+           "mesh_vs_plain": {"bit_equal": bit_equal, "loss_rel": loss_rel,
+                             "params_rel": params_rel,
+                             "tol_rel": SPMD_PLAIN_TOL},
+           "group_loop": {"loss_abs": loop_loss_abs,
+                          "params_abs": loop_params_abs,
+                          "tol": SPMD_LOOP_TOL, "wall_s": loop_wall},
+           "step_wall_s": [wall1, wall2], "plain_step_wall_s": plain_wall,
+           "tokens_per_s": B * seq / wall2, "params_gb": params_gb,
+           "step_peak_gb_above_inputs": [peak1, peak2],
+           "plain_step_peak_gb_above_inputs": plain_peak}
+    if not (math.isfinite(l1) and math.isfinite(l2)
+            and abs(l1 - ln_v) < 1.0):
+        fail(f"spmd_train: losses {l1} {l2}, ln(vocab) {ln_v}")
+    if not (bit_equal or max(loss_rel, params_rel) <= SPMD_PLAIN_TOL):
+        fail(f"spmd_train: mesh vs host step {loss_rel} {params_rel}")
+    if not max(loop_loss_abs, loop_params_abs) <= SPMD_LOOP_TOL:
+        fail(f"spmd_train: vs the group loop {loop_loss_abs} "
+             f"{loop_params_abs}")
+
+    # remat off / full / dots at seq 1024, from the same params and batch
+    b3 = batch(REMAT_SEQ)
+    variants = {"off": {"remat": False}, "full": {},
+                "dots": {"remat_policy": "dots"}}
+    steps = {k: build_train_step(cfg, mesh, n_groups=SPMD_GROUPS,
+                                 lr=SPMD_LR, **kw)[0]
+             for k, kw in variants.items()}
+    remat, ref = {}, None
+    for k, st in steps.items():
+        # once untimed: cuBLAS and DTensor's dispatch caches warm at the
+        # new shapes, then the timed step
+        st(sharded, on_mesh(b3))
+        (new, loss), wall, peak = _timed(torch, lambda: st(sharded,
+                                                           on_mesh(b3)))
+        loss = float(loss.full_tensor())
+        if ref is None:
+            ref = (new, loss)
+        remat[k] = {"loss": loss, "wall_s": wall,
+                    "peak_gb_above_inputs": peak,
+                    "loss_rel_vs_off": abs(loss - ref[1]) / abs(ref[1]),
+                    "params_rel_vs_off": _tree_rel(torch, new, ref[0])}
+        del new
+        torch.cuda.empty_cache()
+    out["remat_seq"], out["remat_sweep"] = REMAT_SEQ, remat
+    emit("spmd_train", **out)
+    for k, r in remat.items():
+        if not max(r["loss_rel_vs_off"], r["params_rel_vs_off"]) <= 1e-6:
+            fail(f"spmd_train: remat {k} differs from remat off: {r}")
+    del sharded, params, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spmd_serve(torch, dev, mesh):
+    """zamba2-1.2b at full width, attn_impl="pallas", through the step
+    builders on the mesh. ``build_prefill_step`` at prefill_32k (seq
+    32768, batch 2: the cut): exactly 6 flash and 32 SSD launches, all on
+    wgmma; its last-token logits within 2e-2 (relative to the largest)
+    of the same step under attn_impl="xla". ``build_decode_step`` at
+    decode_32k (cache 32768, batch 16: the cut) after a 512-token
+    prefill, 4 steps, and at long_500k (cache 524288, batch 1, uncut),
+    2 steps. -> launch counts of the 32k prefill."""
+    import dataclasses
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (SHAPES, build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.models import SplitModel
+    from repro_torch.models.sharding import model_param_specs, shard_params
+    cfg = dataclasses.replace(get_config(ZAMBA), attn_impl="pallas")
+    if not (cfg.n_layers == 38 and cfg.d_model == 2048
+            and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
+        fail(f"spmd_serve: {ZAMBA} is not the full-width config: {cfg}")
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    params = SplitModel(cfg).init(0, device=dev, draw_on_device=True)
+    sharded = shard_params(params, model_param_specs(cfg, mesh), mesh)
+    gen = torch.Generator().manual_seed(6)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             dtype=torch.int32).to(dev)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "prefill": {}, "decode": {}}
+    seq = SHAPES["prefill_32k"]["seq"]
+    toks = tokens(SPMD_PREFILL_BATCH, seq)
+    last = {}
+    with torch.no_grad():
+        for c in (cfg, xla):
+            pstep, (_, pin), _, _ = build_prefill_step(c, mesh)
+            reset_launches()
+            (logits, caches), wall, peak = _timed(torch, lambda: pstep(
+                sharded, {"tokens": distribute_tensor(toks, mesh,
+                                                      pin["tokens"])}))
+            counts = {k: v for k, v in launches().items() if v}
+            last[c.attn_impl] = logits.to_local()
+            del caches, logits
+            torch.cuda.empty_cache()
+            out["prefill"][c.attn_impl] = {
+                "seq": seq, "batch": SPMD_PREFILL_BATCH,
+                "cut": "global batch 32 -> 2", "prefill_s": wall,
+                "tokens_per_s": SPMD_PREFILL_BATCH * seq / wall,
+                "peak_gb_above_inputs": peak, "launches": counts}
+        diff = float((last["pallas"].float() - last["xla"].float())
+                     .abs().max())
+        scale = float(last["xla"].float().abs().max())
+        out["last_logits"] = {"max_abs_diff": diff, "logit_scale": scale,
+                              "tol_rel": SERVE_BF16_TOL,
+                              "finite": bool(torch.isfinite(
+                                  last["pallas"].float()).all())}
+        for shape, b, n_steps in (("decode_32k", SPMD_DECODE_BATCH, 4),
+                                  ("long_500k", 1, 2)):
+            cache_len = SHAPES[shape]["seq"]
+            pstep, (_, pin), _, _ = build_prefill_step(cfg, mesh,
+                                                       shape=shape)
+            dstep, (_, din), _, _ = build_decode_step(cfg, mesh,
+                                                      shape=shape)
+            prompt = tokens(b, SPMD_PROMPT)
+            (logits, caches), pre_s, _ = _timed(torch, lambda: pstep(
+                sharded, {"tokens": distribute_tensor(prompt, mesh,
+                                                      pin["tokens"])}))
+            cache_gb = sum(t.to_local().numel() * t.to_local().element_size()
+                           for layer in caches for t in layer.values()) / 1e9
+            walls, sample = [], []
+            reset_launches()
+            for i in range(n_steps):
+                tok = torch.argmax(logits.to_local()[:, -1, :cfg.vocab_size],
+                                   -1)[:, None].to(torch.int32)
+                sample.append(int(tok[0, 0]))
+                (logits, caches), wall, _ = _timed(torch, lambda: dstep(
+                    sharded, {"token": distribute_tensor(tok, mesh,
+                                                         din["token"]),
+                              "index": distribute_tensor(
+                                  torch.tensor(SPMD_PROMPT + i,
+                                               dtype=torch.int32,
+                                               device=dev),
+                                  mesh, din["index"]),
+                              "caches": caches}))
+                walls.append(wall)
+            finite = bool(torch.isfinite(logits.to_local().float()).all())
+            out["decode"][shape] = {
+                "batch": b, "cache_len": cache_len, "prompt": SPMD_PROMPT,
+                "cut": ("global batch 128 -> 16" if shape == "decode_32k"
+                        else "none"),
+                "cache_gb": cache_gb, "prefill_s": pre_s,
+                "step_wall_s": walls, "launches": {
+                    k: v for k, v in launches().items() if v},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "finite": finite, "sample": sample}
+            del logits, caches
+            torch.cuda.empty_cache()
+            if not finite:
+                fail(f"spmd_serve: {shape} decode logits not finite")
+    emit("spmd_serve", **out)
+    counts = out["prefill"]["pallas"]["launches"]
+    want = {"flash_attention": 6, "flash_attention_wgmma": 6,
+            "ssd_scan": 32, "ssd_scan_wgmma": 32}
+    if counts != want:
+        fail(f"spmd_serve: the 32k prefill launched {counts}, want {want}")
+    if out["prefill"]["xla"]["launches"]:
+        fail(f"spmd_serve: the xla prefill launched "
+             f"{out['prefill']['xla']['launches']}")
+    lg = out["last_logits"]
+    if not (lg["finite"] and lg["max_abs_diff"]
+            <= SERVE_BF16_TOL * lg["logit_scale"]):
+        fail(f"spmd_serve: pallas vs xla last-token logits {lg}")
+    del sharded, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _once_ms(torch, fn) -> float:
+    """CUDA events around one call (a plain version of 0.2-1.3 s, whose
+    own length swamps the launch path)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def row_32k(torch, kern, plain, lib, shape, bnd, n_ops, err) -> dict:
+    """Plain, kernel, kernel, plain in turns (the better of each pair):
+    the kernel's cold device time (``device_ms``, 5 calls a run), the
+    plain version's from one call each; the library yardstick's cold
+    time."""
+    p1 = _once_ms(torch, plain)
+    k1, k2 = device_ms(kern, True, 5), device_ms(kern, True, 5)
+    p2 = _once_ms(torch, plain)
+    lib_ms = (min(device_ms(lib, True, 5) for _ in range(2))
+              if lib is not None else None)
+    ms = min(k1, k2)
+    return {"shape": shape, "ms": ms, "plain_ms": min(p1, p2),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+            "max_abs_err": err, "device_ms_runs": [k1, k2],
+            "plain_ms_runs": [p1, p2],
+            "warm_l2_ms": device_ms(kern, False, 5),
+            "achieved_tflops": n_ops / (ms * 1e-3) / 1e12}
+
+
+def phase_kernels_32k(torch):
+    """flash and the SSD scan alone at the 32k prefill's shapes, each
+    against its plain version (flash's per (batch, head) slice: the
+    scores of one slice are 4.3 GB in f32), with the cold device time,
+    the plain version's, the bound and, for flash, SDPA's. -> rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import kernel as ss
+    gen = torch.Generator().manual_seed(7)
+    seq, B = 32768, SPMD_PREFILL_BATCH
+    rows = {}
+
+    case = (B, seq, 32, 32, 64, 64, True, 0)      # zamba2's shared attn
+    q, k, v = fa_inputs(torch, case, torch.bfloat16, gen)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+    H = case[2]
+
+    def kern():
+        return fa_ops.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return [fa.attention_plain(qh[b:b + 1, h:h + 1], kh[b:b + 1, h:h + 1],
+                                   vh[b:b + 1, h:h + 1], causal=True)
+                for b in range(B) for h in range(H)]
+    before = flash_paths()
+    o = kern()
+    torch.cuda.synchronize()
+    path = path_taken(flash_paths, before)
+    err, ex = 0.0, -1.0
+    oh = o.transpose(1, 2)
+    for b in range(B):
+        for h in range(H):
+            ref = fa.attention_plain(qh[b:b + 1, h:h + 1],
+                                     kh[b:b + 1, h:h + 1],
+                                     vh[b:b + 1, h:h + 1], causal=True)
+            got = oh[b:b + 1, h:h + 1]
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+            ex = max(ex, excess(got, ref, *FA_TOL["bfloat16"]))
+            del ref
+    if path != "wgmma" or not ex <= 0:
+        fail(f"flash at 32k: path {path}, max abs err {err}")
+    n_bytes = (q.numel() + k.numel() + v.numel() + B * seq * H * 64) * 2
+    n_ops = 2 * B * H * (64 + 64) * kept_pairs(seq, seq, True, 0)
+    row = row_32k(
+        torch, kern, plain,
+        lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True),
+        [B * H, seq, 64, 64], bound(n_bytes, n_ops, BF16_OPS_PER_S), n_ops,
+        err)
+    rows["flash_attention"] = {**row, "path": path,
+                               "plain": "per (batch, head) slice",
+                               "sdpa_tflops": n_ops / (row["library_ms"]
+                                                       * 1e-3) / 1e12}
+    emit("kernel_32k", name="flash_attention", **rows["flash_attention"])
+    del q, k, v, qh, kh, vh, qc, kc, vc, o, oh
+    torch.cuda.empty_cache()
+
+    sc = (B, seq, 64, 64, 64, 128, True, "wgmma")  # zamba2's SSM layers
+    x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, torch.bfloat16, gen)
+    b_, s_, h_, p_, n_, l_ = sc[:6]
+    before = ssd_paths()
+    y, f = ss.ssd_scan(x, dtt, A, Bm, Cm, chunk=l_, initial_state=init)
+    torch.cuda.synchronize()
+    path = path_taken(ssd_paths, before)
+    yp, fp = ss.ssd_scan_plain(x, dtt, A, Bm, Cm, chunk=l_,
+                               initial_state=init)
+    err = max(float((y.float() - yp.float()).abs().max()),
+              float((f.float() - fp.float()).abs().max()))
+    ex = max(excess(y, yp, *SSD_TOL["bfloat16"]),
+             excess(f, fp, *SSD_TOL["bfloat16"]))
+    if path != "wgmma" or not ex <= 0:
+        fail(f"ssd_scan at 32k: path {path}, outside {SSD_TOL['bfloat16']} "
+             f"by {ex}")
+    del y, f, yp, fp
+    nc = s_ // l_
+    n_bytes = (2 * x.numel() * 2 + dtt.numel() * 4 + A.numel() * 4
+               + 2 * Bm.numel() * 2 + 2 * init.numel() * 2)
+    n_ops = (b_ * nc * 2 * l_ * l_ * n_
+             + b_ * h_ * nc * (2 * (l_ * (l_ + 1) // 2) * p_
+                               + 2 * l_ * n_ * p_ + 2 * l_ * p_ * n_))
+    rows["ssd_scan"] = {**row_32k(
+        torch,
+        lambda: ss.ssd_scan(x, dtt, A, Bm, Cm, chunk=l_, initial_state=init),
+        lambda: ss.ssd_scan_plain(x, dtt, A, Bm, Cm, chunk=l_,
+                                  initial_state=init),
+        None, list(sc[:6]), bound(n_bytes, n_ops, BF16_OPS_PER_S), n_ops,
+        err), "path": path}
+    emit("kernel_32k", name="ssd_scan", **rows["ssd_scan"])
+    del x, dtt, A, Bm, Cm, init
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2019,15 +2506,26 @@ def main() -> int:
     phase_serve_parity(torch, dev)
     served_moe = phase_serve_moe(torch, dev)
     phase_serve_moe_parity(torch, dev)
+    with tempfile.TemporaryDirectory() as d:
+        mesh = spmd_mesh(torch, Path(d))
+        try:
+            phase_spmd_train(torch, dev, mesh)
+            spmd_served = phase_spmd_serve(torch, dev, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    at_32k = phase_kernels_32k(torch)
 
     flash_by_serve = {"serve": served["flash_attention"],
-                      "serve_moe": served_moe["flash_attention"]}
+                      "serve_moe": served_moe["flash_attention"],
+                      "spmd_serve": spmd_served["flash_attention"]}
+    ssd_by_serve = {"serve": served["ssd_scan"],
+                    "spmd_serve": spmd_served["ssd_scan"]}
     main_path = {"int8_quantize": seq["int8_quantize"],
                  "int8_dequantize": seq["int8_dequantize"],
                  "int8_roundtrip": f_int8["int8_roundtrip"],
                  "sparse_combine": f_topk["sparse_combine"],
                  "flash_attention": sum(flash_by_serve.values()),
-                 "ssd_scan": served["ssd_scan"],
+                 "ssd_scan": sum(ssd_by_serve.values()),
                  "moe_gmm": served_moe["moe_gmm"]}
     replaces = {
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:48",
@@ -2049,15 +2547,21 @@ def main() -> int:
     # row's own, the others ride along
     by_kernel_path = {p: served[f"flash_attention_{p}"]
                       + served_moe[f"flash_attention_{p}"]
+                      + spmd_served.get(f"flash_attention_{p}", 0)
                       for p in ("wgmma", "fp32")}
     also = {"flash_attention": {"launches_by_path": flash_by_serve,
                                 "launches_by_kernel_path": by_kernel_path,
-                                "mla": timed["flash_attention_mla"]},
+                                "mla": timed["flash_attention_mla"],
+                                "prefill_32k": at_32k["flash_attention"]},
             "moe_gmm": {"launches_by_path": {
                 p: served_moe[f"moe_gmm_{p}"] for p in gmm_paths()},
                 "decode": timed["moe_gmm_decode"]},
-            "ssd_scan": {"launches_by_path": {
-                p: served[f"ssd_scan_{p}"] for p in ssd_paths()}}}
+            "ssd_scan": {"launches_by_path": ssd_by_serve,
+                         "launches_by_kernel_path": {
+                             p: served[f"ssd_scan_{p}"]
+                             + spmd_served.get(f"ssd_scan_{p}", 0)
+                             for p in ssd_paths()},
+                         "prefill_32k": at_32k["ssd_scan"]}}
     for k in ("int8_quantize", "int8_dequantize"):
         also[k] = {key: v for key, v in timed[k].items()
                    if key.startswith(("leg_", "features_", "launch_floor",

@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels.int8_quant import (group_size,
                                             int8_dequantize_many,
                                             int8_quantize_many)
+from repro_torch.utils.topk import top_k
 
 
 class Codec:
@@ -184,13 +185,14 @@ class SparseCodec(Codec):
 
 class TopKCodec(SparseCodec):
     """Keep the k largest-magnitude entries (biased; the standard
-    error-feedback partner)."""
+    error-feedback partner); equal magnitudes at the threshold go to the
+    lower index, as ``jax.lax.top_k`` breaks ties."""
 
     def __init__(self, frac: float = DEFAULT_TOPK_FRAC):
         super().__init__("topk", frac)
 
     def _select(self, flat, k):
-        return torch.topk(flat.abs(), k).indices
+        return top_k(flat.abs(), k)[1]
 
 
 class RandomKCodec(SparseCodec):

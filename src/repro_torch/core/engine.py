@@ -44,6 +44,7 @@ from repro_torch.core.scheduler import (FixedSplitScheduler,
                                         SlidingSplitScheduler)
 from repro_torch.core.split import SplitPlan, default_plan
 from repro_torch.models.api import SplitModel
+from repro_torch.models.transformer import without_remat
 from repro_torch.utils import flops as flops_util
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import (get_subtree, set_subtree, tree_flatten,
@@ -122,6 +123,9 @@ class S2FLEngine:
                  fault_plan=None, *, device):
         self.device = resolve_device(device)
         self.model = model
+        # the multi-group server step's model: remat off under torch.func
+        self._func_model = (model if model.is_cnn
+                            else SplitModel(without_remat(model.cfg)))
         self.data = data
         self.ecfg = ecfg
         self.rng = np.random.default_rng(ecfg.seed)
@@ -371,8 +375,10 @@ class S2FLEngine:
         feature/batch shapes) rides ONE call — the per-group Eq.-3 loss,
         its gradients and the Eq.-4 update under ``torch.func.vmap``
         over the stacked (G, …) server copies, features and batches.
+        ``torch.func`` refuses checkpoint's saved-tensor hooks, so the
+        blocks run here with ``remat`` off (the same numbers).
         -> (new stacked copies, losses (G,), stacked [dfx_i])."""
-        m, lr = self.model, self.ecfg.lr
+        m, lr = self._func_model, self.ecfg.lr
 
         def loss_fn(sp, feats_list, batches):
             return torch.sum(torch.stack(

@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels.comm_fused.kernel import (int8_roundtrip,
                                                    sparse_combine)
 from repro_torch.kernels.int8_quant.ops import GROUP
+from repro_torch.utils.topk import top_k
 
 
 def _as_group_rows(x2, group: int):
@@ -62,9 +63,9 @@ def fused_sparse_roundtrip(x, r=None, *, k: int, scale=1.0, indices=None):
     y = x + r.to(x.dtype) if r is not None else x
     y32 = y.to(torch.float32).contiguous()
     if indices is None:
-        # top-k selection stays with the library's batched operator —
-        # row-wise identical to the sequential per-device top-k
-        idx = torch.topk(y32.abs(), int(k), dim=1).indices
+        # the selection is the codec's, row by row (ties to the lower
+        # index, as jax.lax.top_k)
+        idx = top_k(y32.abs(), int(k))[1]
     else:
         idx = torch.as_tensor(indices, dtype=torch.int64, device=y.device)
     mask = torch.zeros_like(y32).scatter_(1, idx, 1.0)

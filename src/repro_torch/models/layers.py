@@ -95,8 +95,12 @@ def cross_entropy(logits, labels, vocab_size: int, *, mask=None):
     """Mean next-token CE in f32; labels == -100 or mask==0 are ignored.
 
     logits may be vocab-padded: positions >= vocab_size are masked out.
+    Vocab-sharded logits (a DTensor on a ``model`` axis) are gathered
+    over vocab first: DTensor's rule for the label gather over a sharded
+    dim mis-reduces.
     """
-    logits = logits.to(torch.float32)
+    from repro_torch.models.sharding import unshard_dim
+    logits = unshard_dim(logits.to(torch.float32), -1)
     if logits.shape[-1] > vocab_size:
         logits = logits.clone()
         logits[..., vocab_size:] = -1e9

@@ -11,9 +11,9 @@ version on a CPU tensor); ``'xla'`` runs the plain counterpart of the
 reference's XLA path, which casts the weights to the activations'
 dtype first.
 
-``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
-leaves their order unspecified; router scores are f32 softmaxes of
-random projections, where ties do not occur.
+The router's top-k is ``utils.topk.top_k``: ties go to the lower expert
+index, as ``jax.lax.top_k`` breaks them (``torch.topk`` leaves them
+open).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ import torch
 
 from repro_torch.models.layers import activation, mlp
 from repro_torch.models.params import ParamDef
+from repro_torch.models.sharding import constrain, whole
+from repro_torch.utils.topk import top_k
 
 
 def moe_defs(cfg):
@@ -55,6 +57,7 @@ def positions_in_expert(flat_e, E: int):
     """flat_e (G, N) expert ids -> (G, N) slot of each entry in its
     expert's bucket: 0, 1, ... in entry order within each row (a stable
     sort, run starts by searchsorted, the inverse permutation)."""
+    flat_e = whole(flat_e)          # on a mesh: DTensor has no searchsorted
     G, N = flat_e.shape
     dev = flat_e.device
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -77,7 +80,7 @@ def _dispatch_combine(cfg, p, xt, *, capacity_factor: float):
 
     logits = xt.to(torch.float32) @ p["router"]          # (G, T, E) f32
     gates = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(gates, k, dim=-1)            # (G, T, k)
+    topw, topi = top_k(gates, k)                         # (G, T, k)
     topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
@@ -131,18 +134,21 @@ def moe_apply(cfg, p, x, *, capacity_factor: float = 1.25):
     are bucketed per shard, as the reference's pod-scale dispatch does:
     the batch is viewed as (shards, T/shards, d) and the ranking,
     scatter and gather run over a leading shard dim, so capacity is per
-    shard and drop decisions are local. (The reference also pins the
-    shard dim to mesh axes with ``with_sharding_constraint``; one card
-    has no mesh, and the numbers do not depend on it.)
+    shard and drop decisions are local. On a device mesh the shard dim
+    is laid over ``cfg.moe_dispatch_axes`` (where the reference pins it
+    with ``with_sharding_constraint``); the numbers do not depend on it.
     """
     B, S, d = x.shape
     T = B * S
     shards = getattr(cfg, "moe_dispatch_shards", 0) or 1
     if shards > 1 and B % shards == 0:
-        out, aux = _dispatch_combine(cfg, p,
-                                     x.reshape(shards, T // shards, d),
-                                     capacity_factor=capacity_factor)
-        out, aux = out.reshape(T, d), aux.mean()
+        axes = tuple(getattr(cfg, "moe_dispatch_axes", ()))
+        pin = ((lambda v: constrain(v, (axes, None, None))) if axes
+               else (lambda v: v))
+        out, aux = _dispatch_combine(
+            cfg, p, pin(x.reshape(shards, T // shards, d)),
+            capacity_factor=capacity_factor)
+        out, aux = pin(out).reshape(T, d), aux.mean()
     else:
         out, aux = _dispatch_combine(cfg, p, x.reshape(1, T, d),
                                      capacity_factor=capacity_factor)

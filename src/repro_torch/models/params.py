@@ -1,7 +1,10 @@
 """Parameter definition machinery.
 
 Every module declares its parameters ONCE as a tree of ``ParamDef``
-(shape + logical axes + init kind); ``init_params`` materializes it.
+(shape + logical axes + init kind). From that single source come
+``init_params`` (materialized tensors), ``abstract_params`` (tensors on
+the ``meta`` device: shapes and dtypes, no storage) and ``param_specs``
+(one sharding spec a leaf, from logical-axis -> mesh-axis rules).
 Shapes are the reference's (conv weights HWIO, depthwise ``(3,3,1,C)``),
 so a parameter tree carries across leaf for leaf.
 
@@ -86,3 +89,39 @@ def init_params(defs, seed: int, param_dtype: str = "float32", *,
 
 def count_params(defs) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs, is_leaf=is_def))
+
+
+def abstract_params(defs, param_dtype: str = "float32"):
+    """The tree of ``defs`` as tensors on the ``meta`` device: shapes and
+    dtypes, no storage (the counterpart of the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    leaves, skel = tree_flatten(defs, is_leaf=is_def)
+    return tree_unflatten(skel, [
+        torch.empty(d.shape, dtype=DTYPES[d.dtype or param_dtype],
+                    device="meta") for d in leaves])
+
+
+def param_specs(defs, rules: dict):
+    """Spec tree from logical-axis rules {logical: mesh_axis | None}: one
+    tuple a leaf, an entry a dim, each None or a mesh-axis name.
+
+    A mesh axis may be claimed by at most one dim of a param; a later dim
+    that names it, or a dim the axis's size (``rules[("_size", axis)]``)
+    does not divide, is replicated."""
+    def to_spec(d: ParamDef):
+        used = set()
+        spec = []
+        for ax, size in zip(d.axes, d.shape):
+            m = rules.get(ax)
+            if m is None or m in used or size == 0:
+                spec.append(None)
+                continue
+            msize = rules.get(("_size", m), 0)
+            if msize and size % msize != 0:
+                spec.append(None)
+                continue
+            used.add(m)
+            spec.append(m)
+        return tuple(spec)
+    leaves, skel = tree_flatten(defs, is_leaf=is_def)
+    return tree_unflatten(skel, [to_spec(d) for d in leaves])

@@ -5,15 +5,30 @@ range-application (``apply_blocks(lo, hi)``) which is what S²FL's sliding
 split consumes: the client portion is ``embed + blocks[:s]``, the server
 portion is ``blocks[s:] + final_norm + head``.
 
-``cfg.scan_layers`` and ``cfg.remat`` are compile and training-memory
-knobs of the reference (``lax.scan`` over identical blocks, per-block
-``jax.checkpoint``). Both compute the same numbers as the plain loop
-over blocks, which is what PyTorch runs eagerly here, so the fields are
-carried but not read.
+``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+per-block ``jax.checkpoint`` does: in training (``train`` set, grad
+mode on, no caches). ``cfg.remat_policy == "dots"`` saves the outputs
+of matrix products without batch dims and recomputes the rest (JAX's
+``dots_with_no_batch_dims_saveable``). The numbers are those of the
+plain loop; only memory and time differ.
+
+``torch.func`` transforms refuse saved-tensor hooks, which checkpoint
+uses, so code that runs blocks under ``torch.func.grad`` / ``vmap`` (the
+engine's multi-group server step) builds its model with ``remat`` off
+(``without_remat``): the same numbers, a layer's activations each held.
+
+``cfg.scan_layers`` (``lax.scan`` over identical blocks, an XLA
+compile-time knob) has no eager counterpart; it is carried, not read.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -108,23 +123,60 @@ def _apply_block_kind(cfg, mixer, ffn, bp, shared, h, positions, cache,
     return h, cache, aux
 
 
+_MM, _BMM = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy == "dots"``: keep the
+    output of a matrix product with no batch dims (``mm``, or the
+    batch-1 ``bmm`` that ``einsum`` runs a projection as); recompute the
+    rest (attention's and the experts' batched products included)."""
+    if op is _MM or (op is _BMM and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg) -> dict:
+    """'' (or any other value, as in the reference) -> full recompute;
+    'dots' -> the selective policy above."""
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    return {}
+
+
+def without_remat(cfg):
+    """``cfg`` with ``remat`` off (itself when it is off already): for
+    blocks run under ``torch.func`` transforms, which refuse checkpoint's
+    saved-tensor hooks."""
+    return dataclasses.replace(cfg, remat=False) if cfg.remat else cfg
+
+
 def apply_blocks(cfg, params, h, lo: int, hi: int, positions,
                  caches=None, cache_index=None, train: bool = False):
     """Apply blocks [lo, hi). caches: per-layer list (len n_layers) or None.
     Returns (h, caches, aux_sum); aux_sum adds up the blocks' MoE router
-    losses, 0 without MoE layers. ``train`` selects the reference's
-    remat, a memory knob with the same numbers, so it changes nothing
-    here."""
+    losses, 0 without MoE layers. With ``train``, ``cfg.remat``, grad
+    mode on and no caches, each block is checkpointed (see the module
+    docstring)."""
     pat = cfg.pattern()
     shared = params.get("shared_attn")
     caches = list(caches) if caches is not None else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = (train and cfg.remat and caches is None
+             and torch.is_grad_enabled())
+    kw = _remat_kwargs(cfg) if remat else {}
     for i in range(lo, hi):
         mixer, ffn = pat[i]
         c_i = caches[i] if caches is not None else None
-        h, c_i, aux = _apply_block_kind(cfg, mixer, ffn, params["blocks"][i],
-                                        shared, h, positions, c_i,
-                                        cache_index)
+        if remat:
+            h, c_i, aux = checkpoint(
+                _apply_block_kind, cfg, mixer, ffn, params["blocks"][i],
+                shared, h, positions, None, None, use_reentrant=False, **kw)
+        else:
+            h, c_i, aux = _apply_block_kind(cfg, mixer, ffn,
+                                            params["blocks"][i], shared, h,
+                                            positions, c_i, cache_index)
         if caches is not None:
             caches[i] = c_i
         if aux is not None:
@@ -178,11 +230,15 @@ def init_caches(cfg, batch: int, max_len: int, *, device):
     return caches
 
 
-def prefill(cfg, params, tokens, max_len: int, prefix_embeds=None):
-    """Run the prompt, build caches. Returns (last_logits, caches, n_prefill)."""
+def prefill(cfg, params, tokens, max_len: int, prefix_embeds=None,
+            caches=None):
+    """Run the prompt, build caches. Returns (last_logits, caches,
+    n_prefill). ``caches``: zeroed caches of ``max_len`` to fill (laid
+    out on a device mesh, say); None -> ``init_caches``."""
     h = apply_embed(cfg, params, tokens, prefix_embeds)
     S = h.shape[1]
-    caches = init_caches(cfg, tokens.shape[0], max_len, device=h.device)
+    if caches is None:
+        caches = init_caches(cfg, tokens.shape[0], max_len, device=h.device)
     h, caches, _ = apply_blocks(cfg, params, h, 0, cfg.n_layers,
                                 _positions(S, h.device), caches=caches)
     logits = apply_head(cfg, params, h[:, -1:])

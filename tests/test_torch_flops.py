@@ -53,7 +53,7 @@ def test_flops_table_matches_live_reference(name):
         assert flops.split_costs(tm, s) == ref_flops.split_costs(rm, s)
 
 
-def test_lm_families_refused():
+def test_deepseek_costs_equal_reference_and_untabled_cnn_refused():
     """deepseek-v2-lite-16b's full-width segment parameter counts equal
     the reference's (15.7 B in all) and so does its ``split_costs``; a
     CNN with no unit-cost table is refused."""

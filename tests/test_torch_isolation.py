@@ -71,6 +71,11 @@ def test_trainer_imports_with_jax_and_reference_blocked():
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.paper_repro\n"
             "import repro_torch.examples.serve_decode\n"
+            "import repro_torch.core.round_step\n"
+            "import repro_torch.models.sharding\n"
+            "import repro_torch.launch.mesh\n"
+            "import repro_torch.launch.steps\n"
+            "import repro_torch.utils.topk\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -94,7 +99,7 @@ def test_default_device_is_cuda_and_never_falls_back(capsys):
 
 @pytest.mark.parametrize("flags", [["--arch", "internlm2-1.8b",
                                     "--reduced"]])
-def test_flags_of_unported_modules_raise(flags, tmp_path, capsys):
+def test_lm_arch_trains_a_round_on_cpu(flags, tmp_path, capsys):
     """An LM arch trains a round on the CPU and writes ``--out``, with
     no accuracy (an LM's evaluation has none)."""
     train.main(["--device", "cpu", *SMALL, *flags,
@@ -160,7 +165,7 @@ def test_server_cpu_run_when_asked(capsys):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
-def test_moe_and_mla_archs_raise_naming_slice_3(arch, capsys):
+def test_moe_and_mla_archs_serve_and_train_on_cpu(arch, capsys):
     """The MoE / MLA arch id resolves, the CLI serves its reduced variant
     on the CPU, and the trainer trains the reduced variant a round on
     the CPU."""
@@ -179,11 +184,10 @@ def test_moe_and_mla_archs_raise_naming_slice_3(arch, capsys):
      "qk_nope_head_dim": 16, "v_head_dim": 32},
     {"ffn_pattern": ("moe",), "n_experts": 4, "top_k": 2, "moe_d_ff": 32},
 ])
-def test_moe_and_mla_configs_raise_naming_slice_3(field):
-    """Slice 3 ported latent attention and the MoE feed-forward, so the
-    refusal this test held is gone (the name is kept): a config with
-    either field builds, and its forward, prefill and a decode step run
-    on the CPU with finite logits."""
+def test_moe_and_mla_configs_forward_prefill_and_decode_on_cpu(field):
+    """A config with latent attention or an MoE feed-forward builds, and
+    its forward, prefill and a decode step run on the CPU with finite
+    logits."""
     from repro_torch.models import transformer as tf
     cfg = dataclasses.replace(
         make_reduced(get_config("internlm2-1.8b"), n_layers=1), **field)
