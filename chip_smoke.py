@@ -170,6 +170,20 @@ non-zero exit:
             against its plain version (flash's per (batch, head) slice),
             cold device time, the plain version's, the bound and, for
             flash, SDPA's.
+14. dryrun  ``python -m repro_torch.launch.dryrun`` in subprocesses on
+            this host (no card work: fake tensors on a fake process
+            group), 5 at a time: internlm2-1.8b x {train_4k,
+            prefill_32k, decode_32k}, zamba2-1.2b x all four shapes and
+            deepseek-v2-lite-16b x {train_4k, prefill_32k, decode_32k}
+            at full width on the (16, 16) mesh of 256 ranks, and
+            internlm2-1.8b x train_4k on the (2, 16, 16) mesh of 512:
+            every record with the reference's keys and nonzero FLOPs,
+            bytes and peak, every train step with collective bytes; a
+            line each. Then dryrun_cross_check: the spmd_train step and
+            spmd_serve's xla prefill, dry-run on a 1 x 1 mesh, their
+            predicted peak, arguments and FLOPs beside what the card
+            measured (peak allocation, parameters' bytes, FLOPs over the
+            measured wall against the 989.4 TFLOP/s peak), with ratios.
 
 Then a ``kernels`` line (all seven kernels with their launch counts on
 the main path, times and bounds; the flash and SSD rows carry their
@@ -179,6 +193,7 @@ nvidia-smi gives them, and as the last line
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -1740,6 +1755,7 @@ def phase_lm_kernels(torch):
 
 ZAMBA = "zamba2-1.2b"
 DEEPSEEK = "deepseek-v2-lite-16b"
+INTERNVL = "internvl2-1b"
 GROUPS = (("flash_attention", ("flash_fwd",)), ("ssd_scan", ("ssd_scan",)),
           ("moe_gmm", ("::gmm_",)),
           ("gemm", ("gemm", "cutlass", "xmma", "nvjet")))
@@ -2056,6 +2072,17 @@ def _timed(torch, fn):
             (torch.cuda.max_memory_allocated() - base) / 1e9)
 
 
+def _card_garbage_gb(torch) -> float:
+    """Card memory (GB) that only the cyclic collector frees, collected:
+    what the code run since the last collection left in reference
+    cycles. A training loop does not collect between steps, so a step
+    must leave none."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    return (held - torch.cuda.memory_allocated()) / 1e9
+
+
 def group_loop_step(torch, cfg, params, batch, split, n_groups, lr):
     """The E=1 reference of the fused step, by hand (the counterpart of
     the reference's ``tests/test_engine.py:152``): client forward,
@@ -2127,6 +2154,7 @@ def phase_spmd_train(torch, dev, mesh):
 
     def on_mesh(b):
         return {k: distribute_tensor(v, mesh, bpl[k]) for k, v in b.items()}
+    garbage_in = _card_garbage_gb(torch)       # the earlier phases'
     params = SplitModel(tcfg).init(0, device=dev, draw_on_device=True)
     torch.cuda.synchronize()
     params_gb = torch.cuda.memory_allocated() / 1e9
@@ -2134,6 +2162,7 @@ def phase_spmd_train(torch, dev, mesh):
     b1, b2 = batch(seq), batch(seq)
     (new1, l1), wall1, peak1 = _timed(torch, lambda: step(sharded,
                                                           on_mesh(b1)))
+    abs1 = torch.cuda.max_memory_allocated() / 1e9
     plain = make_s2fl_train_step(tcfg, split, SPMD_GROUPS, SPMD_LR)
     (p1, pl1), plain_wall, plain_peak = _timed(torch,
                                                lambda: plain(params, b1))
@@ -2151,8 +2180,17 @@ def phase_spmd_train(torch, dev, mesh):
     del loop_new
     torch.cuda.empty_cache()
     (new2, l2), wall2, peak2 = _timed(torch, lambda: step(new1, on_mesh(b2)))
+    abs2 = torch.cuda.max_memory_allocated() / 1e9
     l2 = float(l2.full_tensor())
     del new1, new2
+    torch.cuda.empty_cache()
+    # step 1 once more, from the same params and batch: is step 1's
+    # higher peak its being first, or its inputs?
+    (new3, l3), _, peak3 = _timed(torch, lambda: step(sharded, on_mesh(b1)))
+    abs3 = torch.cuda.max_memory_allocated() / 1e9
+    l3 = float(l3.full_tensor())
+    del new3
+    garbage_left = _card_garbage_gb(torch)     # the steps' own
     torch.cuda.empty_cache()
     ln_v = math.log(cfg.vocab_size)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -2171,12 +2209,20 @@ def phase_spmd_train(torch, dev, mesh):
            "step_wall_s": [wall1, wall2], "plain_step_wall_s": plain_wall,
            "tokens_per_s": B * seq / wall2, "params_gb": params_gb,
            "step_peak_gb_above_inputs": [peak1, peak2],
-           "plain_step_peak_gb_above_inputs": plain_peak}
+           "plain_step_peak_gb_above_inputs": plain_peak,
+           "step_peak_gb": [abs1, abs2],
+           "step1_again": {"loss": l3, "peak_gb_above_inputs": peak3,
+                           "peak_gb": abs3},
+           "cyclic_garbage_gb": {"before_params": garbage_in,
+                                 "after_steps": garbage_left}}
     if not (math.isfinite(l1) and math.isfinite(l2)
             and abs(l1 - ln_v) < 1.0):
         fail(f"spmd_train: losses {l1} {l2}, ln(vocab) {ln_v}")
     if not (bit_equal or max(loss_rel, params_rel) <= SPMD_PLAIN_TOL):
         fail(f"spmd_train: mesh vs host step {loss_rel} {params_rel}")
+    if garbage_left > 0:
+        fail(f"spmd_train: the steps left {garbage_left} GB on the card in "
+             f"reference cycles")
     if not max(loop_loss_abs, loop_params_abs) <= SPMD_LOOP_TOL:
         fail(f"spmd_train: vs the group loop {loop_loss_abs} "
              f"{loop_params_abs}")
@@ -2222,7 +2268,7 @@ def phase_spmd_serve(torch, dev, mesh):
     of the same step under attn_impl="xla". ``build_decode_step`` at
     decode_32k (cache 32768, batch 16: the cut) after a 512-token
     prefill, 4 steps, and at long_500k (cache 524288, batch 1, uncut),
-    2 steps. -> launch counts of the 32k prefill."""
+    2 steps. -> (launch counts of the 32k prefill, the readings)."""
     import dataclasses
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.configs import get_config
@@ -2235,7 +2281,11 @@ def phase_spmd_serve(torch, dev, mesh):
             and cfg.vocab_size == 32000 and cfg.dtype == "bfloat16"):
         fail(f"spmd_serve: {ZAMBA} is not the full-width config: {cfg}")
     xla = dataclasses.replace(cfg, attn_impl="xla")
+    garbage_in = _card_garbage_gb(torch)       # the earlier phases'
+    before = torch.cuda.memory_allocated()
     params = SplitModel(cfg).init(0, device=dev, draw_on_device=True)
+    torch.cuda.synchronize()
+    params_gb = (torch.cuda.memory_allocated() - before) / 1e9
     sharded = shard_params(params, model_param_specs(cfg, mesh), mesh)
     gen = torch.Generator().manual_seed(6)
 
@@ -2243,7 +2293,8 @@ def phase_spmd_serve(torch, dev, mesh):
         return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                              dtype=torch.int32).to(dev)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "prefill": {}, "decode": {}}
+           "d_model": cfg.d_model, "params_gb": params_gb, "prefill": {},
+           "decode": {}, "cyclic_garbage_gb_before_params": garbage_in}
     seq = SHAPES["prefill_32k"]["seq"]
     toks = tokens(SPMD_PREFILL_BATCH, seq)
     last = {}
@@ -2262,7 +2313,8 @@ def phase_spmd_serve(torch, dev, mesh):
                 "seq": seq, "batch": SPMD_PREFILL_BATCH,
                 "cut": "global batch 32 -> 2", "prefill_s": wall,
                 "tokens_per_s": SPMD_PREFILL_BATCH * seq / wall,
-                "peak_gb_above_inputs": peak, "launches": counts}
+                "peak_gb_above_inputs": peak, "launches": counts,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         diff = float((last["pallas"].float() - last["xla"].float())
                      .abs().max())
         scale = float(last["xla"].float().abs().max())
@@ -2328,7 +2380,7 @@ def phase_spmd_serve(torch, dev, mesh):
         fail(f"spmd_serve: pallas vs xla last-token logits {lg}")
     del sharded, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, out
 
 
 def _once_ms(torch, fn) -> float:
@@ -2457,6 +2509,171 @@ def phase_kernels_32k(torch):
     return rows
 
 
+# the dryrun phase: (arch, shape) on the (16, 16) fake mesh, full width
+DRYRUN_PAIRS = ((INTERNLM, "train_4k"), (INTERNLM, "prefill_32k"),
+                (INTERNLM, "decode_32k"), (ZAMBA, "train_4k"),
+                (ZAMBA, "prefill_32k"), (ZAMBA, "decode_32k"),
+                (ZAMBA, "long_500k"), (DEEPSEEK, "train_4k"),
+                (DEEPSEEK, "prefill_32k"), (DEEPSEEK, "decode_32k"),
+                # a modality frontend: the embedding's partial sum reduced
+                # before the prefix is concatenated
+                (INTERNVL, "train_4k"))
+DRYRUN_WORKERS = 5                 # of the host's 8 cores
+DRYRUN_TIMEOUT_S = 600
+# the two steps spmd_train and spmd_serve time, on a 1 x 1 fake mesh
+DRYRUN_CHECKS = {
+    "spmd_train": ["--arch", INTERNLM, "--shape", "train_4k", "--mesh",
+                   "1x1", "--batch", str(SPMD_TRAIN_BATCH), "--groups",
+                   str(SPMD_GROUPS)],
+    "spmd_serve_xla": ["--arch", ZAMBA, "--shape", "prefill_32k", "--mesh",
+                       "1x1", "--batch", str(SPMD_PREFILL_BATCH),
+                       "--attn-impl", "xla"],
+}
+DRYRUN_KEYS = ("arch", "shape", "chips", "t_compute_s", "t_memory_s",
+               "t_collective_s", "dominant", "hlo_flops", "hlo_bytes",
+               "coll_bytes", "model_flops", "useful_ratio",
+               "flops_estimated", "multi_pod", "lower_s", "compile_s",
+               "bytes_per_device", "argument_bytes", "output_bytes",
+               "peak_bytes", "coll_counts")
+
+
+def _dryrun_jobs(tmp: Path) -> dict:
+    """tag -> the dry-run CLI's arguments (each its own process: one
+    process group a process, and this process holds the NCCL one)."""
+    jobs = {f"{a}|{s}": ["--arch", a, "--shape", s] for a, s in DRYRUN_PAIRS}
+    jobs[f"{INTERNLM}|train_4k|multi_pod"] = ["--arch", INTERNLM, "--shape",
+                                             "train_4k", "--multi-pod"]
+    jobs.update(DRYRUN_CHECKS)
+    return {tag: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                  "--device", "cuda", *args, "--json",
+                  str(tmp / f"{i}.json")]
+            for i, (tag, args) in enumerate(jobs.items())}
+
+
+def _dryrun(cmd: list, env: dict) -> tuple:
+    """One dry-run CLI call -> (its records, exit code, wall s, log
+    tail); killed at ``DRYRUN_TIMEOUT_S``."""
+    out = cmd[cmd.index("--json") + 1]
+    t0 = time.time()
+    with open(out + ".log", "w") as log:
+        try:
+            rc = subprocess.run(cmd, cwd=ROOT, env=env, stdout=log,
+                                stderr=log, timeout=DRYRUN_TIMEOUT_S
+                                ).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    recs = json.loads(Path(out).read_text()) if Path(out).exists() else []
+    return recs, rc, time.time() - t0, Path(out + ".log").read_text()[-2000:]
+
+
+def run_dryruns(tmp: Path) -> dict:
+    """All dry-runs, ``DRYRUN_WORKERS`` at a time, the trains first;
+    -> tag -> (record, wall s). A run that fails ends the smoke (once
+    the runs under way have ended)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    jobs = _dryrun_jobs(tmp)
+    done = {}
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+        runs = {pool.submit(_dryrun, jobs[tag], env): tag
+                for tag in sorted(jobs, key=lambda t: "train" not in t)}
+        for f in as_completed(runs):
+            tag = runs[f]
+            recs, rc, secs, tail = f.result()
+            if rc != 0 or len(recs) != 1 or "error" in recs[0]:
+                pool.shutdown(cancel_futures=True)
+                fail(f"dryrun {tag}: exit {rc}: {tail}")
+            done[tag] = (recs[0], secs)
+    return done
+
+
+def phase_dryrun(trained: dict, served: dict):
+    """The production-mesh dry-run (``repro_torch.launch.dryrun``) in
+    subprocesses on this host: the eleven (arch, shape) pairs of
+    ``DRYRUN_PAIRS`` on the (16, 16) mesh of a fake 256-rank group and
+    internlm2-1.8b x train_4k on the (2, 16, 16) mesh of a 512-rank one,
+    at full width: a line each with the roofline terms, the collectives
+    and the peak. Then the two steps that spmd_train and spmd_serve ran
+    on the card, dry-run on a 1 x 1 fake mesh: their predicted peak,
+    arguments and FLOPs beside what the card measured (its peak
+    allocation, its parameters' bytes, FLOPs over the measured wall)."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        done = run_dryruns(Path(d))
+        wall = time.time() - t0
+    for tag, (rec, secs) in done.items():
+        if tag in DRYRUN_CHECKS:
+            continue
+        missing = [k for k in DRYRUN_KEYS if k not in rec]
+        if missing or not (rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
+                           and rec["peak_bytes"] > 0):
+            fail(f"dryrun {tag}: record {rec} (missing {missing})")
+        if rec["shape"] == "train_4k" and not rec["coll_bytes"] > 0:
+            fail(f"dryrun {tag}: a train step moved no bytes between ranks")
+        emit("dryrun", mesh=rec["mesh"], wall_s=secs,
+             **{k: rec[k] for k in DRYRUN_KEYS})
+
+    gb = 1e9
+    tr, _ = done["spmd_train"]
+    sv, _ = done["spmd_serve_xla"]
+    step2 = trained["step_wall_s"][1]
+    xla = served["prefill"]["xla"]
+    checks = {
+        "spmd_train": {
+            "step": (f"{INTERNLM} build_train_step, seq 4096, batch "
+                     f"{SPMD_TRAIN_BATCH}, {SPMD_GROUPS} groups, 1 x 1"),
+            "argument_gb": {"predicted": tr["argument_bytes"] / gb,
+                            "measured_params": trained["params_gb"]},
+            "peak_gb_above_inputs": {
+                "predicted": tr["bytes_per_device"] / gb,
+                "measured_step1": trained["step_peak_gb_above_inputs"][0],
+                "measured_step2": trained["step_peak_gb_above_inputs"][1],
+                "measured_step1_again":
+                    trained["step1_again"]["peak_gb_above_inputs"]},
+            "peak_gb": {"predicted": tr["peak_bytes"] / gb,
+                        "measured_step1": trained["step_peak_gb"][0],
+                        "measured_step2": trained["step_peak_gb"][1],
+                        "measured_step1_again":
+                            trained["step1_again"]["peak_gb"]},
+            "tflops": {"flops": tr["hlo_flops"], "wall_s": step2,
+                       "measured": tr["hlo_flops"] / step2 / 1e12,
+                       "peak": hlo_peak_tflops()},
+            "predicted_s": {"compute": tr["t_compute_s"],
+                            "memory": tr["t_memory_s"]}},
+        "spmd_serve_xla": {
+            "step": (f"{ZAMBA} build_prefill_step, seq 32768, batch "
+                     f"{SPMD_PREFILL_BATCH}, attn_impl xla, 1 x 1"),
+            "argument_gb": {"predicted": sv["argument_bytes"] / gb,
+                            "measured_params": served["params_gb"]},
+            "peak_gb_above_inputs": {
+                "predicted": sv["bytes_per_device"] / gb,
+                "measured": xla["peak_gb_above_inputs"]},
+            "peak_gb": {"predicted": sv["peak_bytes"] / gb,
+                        "measured": xla["peak_gb"]},
+            "tflops": {"flops": sv["hlo_flops"], "wall_s": xla["prefill_s"],
+                       "measured": sv["hlo_flops"] / xla["prefill_s"] / 1e12,
+                       "peak": hlo_peak_tflops()},
+            "predicted_s": {"compute": sv["t_compute_s"],
+                            "memory": sv["t_memory_s"]}},
+    }
+    for c in checks.values():
+        for v in c.values():
+            if isinstance(v, dict) and "predicted" in v:
+                v["ratio"] = {k: v["predicted"] / m for k, m in v.items()
+                              if k.startswith("measured") and m}
+        c["tflops"]["share_of_peak"] = (c["tflops"]["measured"]
+                                        / c["tflops"]["peak"])
+    emit("dryrun_cross_check", wall_s=wall, **checks)
+    return checks
+
+
+def hlo_peak_tflops() -> float:
+    from repro_torch.utils import hlo
+    return hlo.PEAK_FLOPS / 1e12
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2509,11 +2726,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         mesh = spmd_mesh(torch, Path(d))
         try:
-            phase_spmd_train(torch, dev, mesh)
-            spmd_served = phase_spmd_serve(torch, dev, mesh)
+            spmd_trained = phase_spmd_train(torch, dev, mesh)
+            spmd_served, spmd_serve_out = phase_spmd_serve(torch, dev, mesh)
         finally:
             torch.distributed.destroy_process_group()
     at_32k = phase_kernels_32k(torch)
+    torch.cuda.empty_cache()
+    phase_dryrun(spmd_trained, spmd_serve_out)
 
     flash_by_serve = {"serve": served["flash_attention"],
                       "serve_moe": served_moe["flash_attention"],

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.models.api import SplitModel
 from repro_torch.models.params import DTYPES
-from repro_torch.models.sharding import (batch_spec, constrain,
+from repro_torch.models.sharding import (batch_spec, constrain, laid_out,
                                         model_param_specs, placements_of,
                                         to_placements)
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -89,17 +89,30 @@ def make_s2fl_loss(cfg, split: int, n_groups: int, dp_axes=None,
             return x
         return constrain(x, (None, tuple(dp_axes)) + (None,) * (x.ndim - 2))
 
+    def whole(x):
+        """The batch on every rank, its gradient back in x's layout: the
+        balance permutation moves rows between every pair of data ranks,
+        and a batch dim sharded over them cannot be split into groups
+        (each group's rows lie on every data rank)."""
+        if dp_axes is None or not hasattr(x, "device_mesh"):
+            return x
+        from torch.distributed.tensor import Replicate
+        return laid_out(x, [Replicate()] * x.device_mesh.ndim)
+
+    def grouped(x):
+        """The permuted batch (B, ...) as (G, gb, ...), gb over the data
+        axes."""
+        return on_data_axes(x.reshape(n_groups, x.shape[0] // n_groups,
+                                      *x.shape[1:]))
+
     def loss_fn(params, batch):
         feats = model.client_forward(params, batch, split, train=True)
         perm = batch["perm"]
-        h = torch.index_select(_grad_cast(feats["h"], compute_dtype), 0,
-                               perm)
-        labels = torch.index_select(batch["labels"], 0, perm)
-        tokens = torch.index_select(batch["tokens"], 0, perm)
-        gb = h.shape[0] // n_groups
-        hg = on_data_axes(h.reshape(n_groups, gb, *h.shape[1:]))
-        lg = on_data_axes(labels.reshape(n_groups, gb, *labels.shape[1:]))
-        tg = on_data_axes(tokens.reshape(n_groups, gb, *tokens.shape[1:]))
+        h = torch.index_select(whole(_grad_cast(feats["h"], compute_dtype)),
+                               0, perm)
+        labels = torch.index_select(whole(batch["labels"]), 0, perm)
+        tokens = torch.index_select(whole(batch["tokens"]), 0, perm)
+        hg, lg, tg = grouped(h), grouped(labels), grouped(tokens)
         zero = torch.zeros((), dtype=torch.float32, device=h.device)
         losses = [model.server_loss(params, {"h": hg[g], "aux": zero},
                                     {"tokens": tg[g], "labels": lg[g]},

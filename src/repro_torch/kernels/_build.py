@@ -118,34 +118,3 @@ def refuse_grad(what: str, *tensors) -> None:
 def stream_ptr(t) -> int:
     """The current CUDA stream of t's device, as the C entries take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def on_batch_shards(fn, args, batched, **kw):
-    """``fn(*args, **kw)`` for a kernel wrapper whose rows along dim 0 of
-    the ``batched`` args are independent (batch rows, experts). With
-    DTensor args (a step on a device mesh), each rank runs ``fn`` on its
-    local rows: the batched args are laid out with dim 0 sharded as the
-    first one's is and every other dim whole, the rest replicated; the
-    output(s) come back as DTensors with dim 0 so sharded. A kernel reads
-    raw device pointers, which a DTensor does not have. Without a DTensor
-    arg this is ``fn(*args, **kw)``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    lead = next((a for a, b in zip(args, batched)
-                 if b and isinstance(a, DTensor)), None)
-    if lead is None:
-        return fn(*args, **kw)
-    mesh = lead.device_mesh
-    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-            for p in lead.placements]
-    whole = [Replicate()] * mesh.ndim
-
-    def local(a, b):
-        if a is None:
-            return None
-        if not isinstance(a, DTensor):           # a plain value: replicated
-            a = DTensor.from_local(a, mesh, whole, run_check=False)
-        return a.redistribute(mesh, rows if b else whole).to_local()
-
-    out = fn(*[local(a, b) for a, b in zip(args, batched)], **kw)
-    wrap = lambda o: DTensor.from_local(o, mesh, rows, run_check=False)
-    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)

@@ -1,7 +1,6 @@
 """Model-layout adapter around the flash attention kernel."""
 from __future__ import annotations
 
-from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
 
 
@@ -13,15 +12,10 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, window: int = 0,
     the reference's adapter does: ``q_pos`` / ``k_pos`` are not read.
     The heads keep the reference's (K, G) order, so q head k*G + g reads
     kv head k; the kernel reads the (B,S,H,D) tensors through strides.
-    On a device mesh (DTensor q, k, v) each rank runs its batch rows
-    (``_build.on_batch_shards``).
+    Plain tensors only (a kernel reads raw device pointers): on a device
+    mesh ``attention.grouped_attention`` calls this on each rank's local
+    rows and heads.
     """
-    return _build.on_batch_shards(_model_layout, (q, k, v),
-                                  (True, True, True), causal=causal,
-                                  window=window)
-
-
-def _model_layout(q, k, v, *, causal: bool, window: int):
     out = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
                                window=window)

@@ -93,11 +93,13 @@ def decode_inputs(cfg, *, batch: int, seq: int):
             "caches": tf_mod.init_caches(cfg, batch, seq, device="meta")}
 
 
-def input_specs(cfg, shape: str):
+def input_specs(cfg, shape: str, *, batch=None, seq=None):
+    """The shape's abstract inputs; ``batch`` / ``seq`` in place of the
+    shape's global batch and sequence (a step cut to fit one card)."""
     s = SHAPES[shape]
     fn = {"train": train_inputs, "prefill": prefill_inputs,
           "decode": decode_inputs}[s["kind"]]
-    return fn(cfg, batch=s["batch"], seq=s["seq"])
+    return fn(cfg, batch=batch or s["batch"], seq=seq or s["seq"])
 
 
 def abstract_model_params(cfg):
@@ -127,16 +129,17 @@ def train_config(cfg, mesh, *, remat: bool = True, scan_layers=None,
 def build_train_step(cfg, mesh, *, split=None, n_groups: int = DEFAULT_GROUPS,
                      lr: float = 0.01, shape: str = "train_4k",
                      remat: bool = True, scan_layers=None,
-                     remat_policy=None):
+                     remat_policy=None, batch=None, seq=None):
     """The fused S²FL round step over ``mesh``; ``scan_layers`` is carried
-    into the config and not read (an XLA compile-time knob)."""
+    into the config and not read (an XLA compile-time knob). ``batch`` /
+    ``seq``: as in ``input_specs``."""
     cfg = train_config(cfg, mesh, remat=remat, scan_layers=scan_layers,
                        remat_policy=remat_policy)
     split = split if split is not None else default_split(cfg)
     step = make_s2fl_train_step(
         cfg, split, n_groups, lr, dp_axes=data_axes(mesh),
         group_members=max(1, data_shards(mesh) // n_groups))
-    batch_abs = input_specs(cfg, shape)
+    batch_abs = input_specs(cfg, shape, batch=batch, seq=seq)
     in_pl, out_pl = train_step_shardings(cfg, mesh, batch_abs)
     return step, in_pl, out_pl, (abstract_model_params(cfg), batch_abs)
 
@@ -156,27 +159,26 @@ def _index(i) -> int:
 
 def _new_caches(cfg, mesh, cspecs, batch: int, max_len: int):
     """``init_caches`` laid out by ``cspecs`` on ``mesh``, each rank
-    making only its own shards. Every leaf of ``init_caches`` is one
-    constant (0, or -1 for a window's slot positions), read here from a
-    one-slot cache."""
+    making only its own shards. Each leaf is one constant
+    (``cache_fill``), so no tensor is read here: the step also runs on
+    fake tensors."""
     from torch.distributed.tensor import full
     shapes = tf_mod.init_caches(cfg, batch, max_len, device="meta")
-    fills = tf_mod.init_caches(cfg, 1, 1, device="cpu")
-    return map_specs(
-        lambda sp, m, f: full(tuple(m.shape), f.reshape(-1)[0].item(),
-                              dtype=m.dtype, device_mesh=mesh,
-                              placements=to_placements(sp, mesh)),
-        cspecs, shapes, fills)
+    return [{k: full(tuple(m.shape), tf_mod.cache_fill(k), dtype=m.dtype,
+                     device_mesh=mesh,
+                     placements=to_placements(specs[k], mesh))
+             for k, m in layer.items()}
+            for layer, specs in zip(shapes, cspecs)]
 
 
 def build_prefill_step(cfg, mesh, *, shape: str = "prefill_32k",
-                       max_len=None):
+                       max_len=None, batch=None, seq=None):
     """Prefill a prompt of the shape's batch and seq into caches of
     ``max_len`` (the seq, plus the frontend's prefix) laid out by
     ``cache_specs`` on ``mesh``. A decode shape gives the prefill that
-    builds its caches."""
+    builds its caches. ``batch`` / ``seq``: as in ``input_specs``."""
     s = SHAPES[shape]
-    batch, seq = s["batch"], s["seq"]
+    batch, seq = batch or s["batch"], seq or s["seq"]
     # modality prefix tokens occupy cache slots too
     max_len = max_len or (seq + (cfg.n_frontend_tokens if cfg.frontend
                                  else 0))
@@ -202,10 +204,12 @@ def build_prefill_step(cfg, mesh, *, shape: str = "prefill_32k",
             (abstract_model_params(cfg), batch_abs))
 
 
-def build_decode_step(cfg, mesh, *, shape: str = "decode_32k"):
-    """One decode step; the caches are updated in place and returned."""
+def build_decode_step(cfg, mesh, *, shape: str = "decode_32k", batch=None,
+                      seq=None):
+    """One decode step; the caches are updated in place and returned.
+    ``batch`` / ``seq`` (the caches' length): as in ``input_specs``."""
     s = SHAPES[shape]
-    batch = s["batch"]
+    batch = batch or s["batch"]
 
     def step(params, batch_in):
         from torch.distributed.tensor.experimental import (
@@ -215,7 +219,7 @@ def build_decode_step(cfg, mesh, *, shape: str = "decode_32k"):
                                       batch_in["caches"],
                                       _index(batch_in["index"]))
 
-    batch_abs = input_specs(cfg, shape)
+    batch_abs = input_specs(cfg, shape, batch=batch, seq=seq)
     pspecs = placements_of(model_param_specs(cfg, mesh), mesh)
     cpl = placements_of(cache_specs(cfg, mesh, batch_abs["caches"], batch),
                         mesh)

@@ -31,6 +31,7 @@ from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
+EMPTY_SLOT = -1          # a window slot's position before it is written
 
 
 # ---------------------------------------------------------------------------
@@ -75,30 +76,136 @@ def grouped_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
 
     Returns (B,S,H,Dv). Positions are 1-D int arrays (right-aligned, no
     padding semantics — masking is purely positional).
+
+    On DTensors (a step on a device mesh) each rank attends its own
+    batch rows and heads (``on_local_shards``), through the flash kernel
+    under ``impl="pallas"`` (q of more than one position): the arithmetic
+    of each (row, head) is that of the whole tensors. Where the kv heads do not
+    divide the mesh dim that shards q's heads, k and v are whole there
+    and each rank takes the kv heads its q heads read. Decode caches
+    sharded over the sequence or the head dim stay so: DTensor's rules
+    reduce the scores and the output over them, q's heads made whole
+    where the kv heads do not divide.
     """
+    from repro_torch.models.sharding import on_local_shards, unshard_dim
+    heads = {"batch": 0, "heads": 2}
+    n_heads, n_kv = q.shape[2], k.shape[2]
+    flash = impl == "pallas" and q.shape[1] > 1
+    if not flash and (_sharded_within_rows(k) or _sharded_within_rows(v)):
+        if _sharded_within_rows(q, n_kv):
+            q = unshard_dim(q, 2)
+        if _sharded_on(k, 3) or _sharded_on(v, 3):
+            return _attention_over_head_dim(q, k, v, q_pos, k_pos,
+                                            window=window, causal=causal)
+        return _attention_plain(q, k, v, q_pos, k_pos, window=window,
+                                causal=causal)
+
+    def attend(q, k, v, q_pos, k_pos, *, starts):
+        if k.shape[2] == n_kv and q.shape[2] < n_heads:
+            g = n_heads // n_kv                  # k, v whole: q's kv heads
+            h0 = starts.get("heads", 0)
+            k0, k1 = h0 // g, (h0 + q.shape[2] - 1) // g + 1
+            k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+        if flash:
+            from repro_torch.kernels.flash_attention import ops as fa_ops
+            return fa_ops.flash_attention(q, k, v, q_pos, k_pos,
+                                          window=window, causal=causal)
+        return _attention_plain(q, k, v, q_pos, k_pos, window=window,
+                                causal=causal)
+
+    return on_local_shards(attend, (q, k, v, q_pos, k_pos),
+                           (heads, heads, heads, {}, {}), heads)
+
+
+def _sharded_within_rows(t, n_kv: int = 0) -> bool:
+    """A DTensor sharded on a dim other than the batch (0) and the heads
+    (2); with ``n_kv``, one whose heads are sharded over a mesh dim that
+    ``n_kv`` kv heads do not divide."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return False
+    sizes = tuple(t.device_mesh.shape)
+    if n_kv:
+        return any(p.is_shard(2) and n_kv % sizes[i]
+                   for i, p in enumerate(t.placements))
+    return any(p.is_shard() and p.dim % t.ndim not in (0, 2)
+               for p in t.placements)
+
+
+def _sharded_on(t, dim: int) -> bool:
+    return hasattr(t, "placements") and any(p.is_shard(dim)
+                                            for p in t.placements)
+
+
+def _attention_over_head_dim(q, k, v, q_pos, k_pos, *, window: int,
+                             causal: bool):
+    """The plain attention of one query step over caches sharded on the
+    head dim (decode, where the kv heads do not divide the model dim):
+    each rank's slice of the head dim gives a part of the scores, which
+    are summed over the ranks before the scale; the output keeps its
+    slice until the heads are merged."""
+    from repro_torch.models.sharding import on_local_shards, unshard_dim
+    B, S, H, Dq = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    f32 = torch.float32
+
+    def scores(q, k, *, starts):
+        qg = q.reshape(q.shape[0], S, K, G, q.shape[3])
+        return torch.einsum("bskgd,btkd->bkgst", qg.to(f32), k.to(f32))
+
+    def weighted(w, v, *, starts):
+        return torch.einsum("bkgst,btkd->bskgd", w, v)
+
+    rows, dims = {"batch": 0}, {"batch": 0, "d": 3}
+    s = on_local_shards(scores, (q, k), (dims, dims),
+                        {"batch": 0, "partial": ("d",)})
+    s = _summed(s) * (1.0 / math.sqrt(Dq))
+    mask = _mask(q_pos, k_pos, window=window, causal=causal,
+                 device=q.device)
+    w = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o = on_local_shards(weighted, (w.to(v.dtype), v), (rows, dims),
+                        {"batch": 0, "d": 4})
+    return unshard_dim(o, 4).reshape(B, S, H, v.shape[-1])
+
+
+def _mask(q_pos, k_pos, *, window: int, causal: bool, device):
+    """(S, T) bool: the keys each query sees. Built out of place: k_pos
+    may be a DTensor (a window's slot positions)."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=device)
+    if causal:
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])
+    if window:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    return mask & (k_pos[None, :] >= 0)
+
+
+def _summed(x):
+    """A DTensor's partial sums reduced (``Replicate`` where it was
+    ``Partial``); anything else as it is."""
+    from torch.distributed.tensor import Replicate
+    if not hasattr(x, "placements"):
+        return x
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _attention_plain(q, k, v, q_pos, k_pos, *, window: int, causal: bool):
+    """The reference's masked-softmax attention in f32 over q blocks, on
+    plain tensors."""
     B, S, H, Dq = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(Dq)
-
-    if impl == "pallas" and S > 1:
-        from repro_torch.kernels.flash_attention import ops as fa_ops
-        return fa_ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
-                                      causal=causal)
-
     qg = q.reshape(B, S, K, G, Dq)
     kf, vf = k.to(torch.float32), v
 
     def block(q_blk, qp_blk):
         s = torch.einsum("bskgd,btkd->bkgst", q_blk.to(torch.float32),
                          kf) * scale
-        mask = torch.ones((q_blk.shape[1], T), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= qp_blk[:, None] >= k_pos[None, :]
-        if window:
-            mask &= qp_blk[:, None] - k_pos[None, :] < window
-        mask &= k_pos[None, :] >= 0
+        mask = _mask(qp_blk, k_pos, window=window, causal=causal,
+                     device=q.device)
         s = torch.where(mask, s, NEG_INF)
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgst,btkd->bskgd", w.to(vf.dtype), vf)
@@ -126,7 +233,7 @@ def init_attn_cache(cfg, kind: str, batch: int, max_len: int, dtype,
     cache = {"k": torch.zeros((batch, L, K, D), dtype=dtype, device=device),
              "v": torch.zeros((batch, L, K, D), dtype=dtype, device=device)}
     if kind == "swa":
-        cache["slot_pos"] = torch.full((L,), -1, dtype=torch.int32,
+        cache["slot_pos"] = torch.full((L,), EMPTY_SLOT, dtype=torch.int32,
                                        device=device)
     return cache
 
@@ -168,7 +275,7 @@ def gqa_apply(cfg, kind, p, x, positions, cache=None, cache_index=None):
             if "slot_pos" in cache:
                 pos = positions.to(torch.int32)
                 cache["slot_pos"] = (
-                    torch.cat([pos, pos.new_full((L - S,), -1)])
+                    torch.cat([pos, pos.new_full((L - S,), EMPTY_SLOT)])
                     if L > S else pos[:L])
         out = grouped_attention(q, k, v, positions, positions,
                                 window=window, causal=True,

@@ -49,9 +49,22 @@ def activation(act: str):
 
 
 def mlp(params, x, act: str = "silu"):
-    g = activation(act)(x @ params["w_gate"].to(x.dtype))
-    u = x @ params["w_up"].to(x.dtype)
-    return (g * u) @ params["w_down"].to(x.dtype)
+    """On DTensors each rank runs its own rows against its own features
+    (``on_local_shards``): weights sharded over ``ff`` give each rank
+    a part of the output, summed over their mesh dim."""
+    from repro_torch.models.sharding import on_local_shards
+    actf = activation(act)
+
+    def local(x, w_gate, w_up, w_down, *, starts):
+        g = actf(x @ w_gate.to(x.dtype))
+        u = x @ w_up.to(x.dtype)
+        return (g * u) @ w_down.to(x.dtype)
+
+    rows = {"rows": 0}
+    return on_local_shards(
+        local, (x, params["w_gate"], params["w_up"], params["w_down"]),
+        (rows, {"ff": 1}, {"ff": 1}, {"ff": 0}),
+        {"rows": 0, "partial": ("ff",)})
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +76,9 @@ def embed_defs(vocab_padded: int, d_model: int):
 
 
 def embed(params, tokens, compute_dtype):
-    return params["tok"][tokens].to(compute_dtype)
+    """The rows of the table (``F.embedding``: on a device mesh, a table
+    sharded over vocab is looked up where it lies, as a partial sum)."""
+    return F.embedding(tokens, params["tok"]).to(compute_dtype)
 
 
 def head_defs(d_model: int, vocab_padded: int):
@@ -95,20 +110,26 @@ def cross_entropy(logits, labels, vocab_size: int, *, mask=None):
     """Mean next-token CE in f32; labels == -100 or mask==0 are ignored.
 
     logits may be vocab-padded: positions >= vocab_size are masked out.
-    Vocab-sharded logits (a DTensor on a ``model`` axis) are gathered
-    over vocab first: DTensor's rule for the label gather over a sharded
-    dim mis-reduces.
+    On DTensors each rank takes its own rows' token losses
+    (``on_local_shards``), the vocab whole: DTensor's rule for the label
+    gather over a sharded dim mis-reduces, and its backward of a gather
+    allocates the logits' gradient at the full batch.
     """
-    from repro_torch.models.sharding import unshard_dim
-    logits = unshard_dim(logits.to(torch.float32), -1)
-    if logits.shape[-1] > vocab_size:
-        logits = logits.clone()
-        logits[..., vocab_size:] = -1e9
+    from repro_torch.models.sharding import on_local_shards
     valid = labels >= 0
     if mask is not None:
         valid = valid & (mask > 0)
     labels_safe = torch.clamp(labels, 0, vocab_size - 1)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels_safe[..., None].long())[..., 0]
-    nll = (logz - ll) * valid
-    return nll.sum() / torch.clamp_min(valid.sum(), 1)
+
+    def nll(logits, labels, *, starts):
+        logits = logits.to(torch.float32)
+        if logits.shape[-1] > vocab_size:
+            logits = logits.clone()
+            logits[..., vocab_size:] = -1e9
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz - torch.gather(logits, -1, labels[..., None].long())[
+            ..., 0]
+
+    rows = {"batch": 0}
+    nll = on_local_shards(nll, (logits, labels_safe), (rows, rows), rows)
+    return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1)

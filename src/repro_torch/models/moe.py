@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.models.layers import activation, mlp
 from repro_torch.models.params import ParamDef
-from repro_torch.models.sharding import constrain, whole
+from repro_torch.models.sharding import (constrain, laid_out,
+                                        on_local_shards, whole)
 from repro_torch.utils.topk import top_k
 
 
@@ -95,36 +96,66 @@ def _dispatch_combine(cfg, p, xt, *, capacity_factor: float):
 
     C = int(capacity_factor * k * T / E)
     C = max(8, math.ceil(C / 8) * 8)
+    slabs = {"slabs": 0}
+    experts = {"experts": 0}
+    w = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
 
+    def local(xt, topw, topi, w_gate, w_up, w_down, *, starts):
+        return _dispatch_local(
+            cfg, xt, topw, topi, {"w_gate": w_gate, "w_up": w_up,
+                                  "w_down": w_down},
+            C, starts.get("experts", 0))
+
+    out = on_local_shards(
+        local, (xt, topw, topi, w["w_gate"], w["w_up"], w["w_down"]),
+        (slabs, slabs, slabs, experts, experts, experts),
+        {"slabs": 0, "partial": ("experts",)})
+    return out, aux
+
+
+def _dispatch_local(cfg, xt, topw, topi, w, C: int, e0: int):
+    """Dispatch -> expert FFN -> combine on plain tensors, for the
+    experts ``e0, e0 + 1, ...`` whose weights ``w`` holds (all of
+    ``cfg.n_experts`` off a mesh): an entry routed elsewhere adds nothing
+    here (on a device mesh another rank holds its expert, and the
+    combines are summed over ranks)."""
+    G, T, d = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n_local = w["w_gate"].shape[0]
+    dev = xt.device
     flat_e = topi.reshape(G, -1)                         # (G, T*k)
     N = flat_e.shape[1]
     flat_pos = positions_in_expert(flat_e, E)
     keep = flat_pos < C                                  # overflow dropped
-
+    safe_e = flat_e
+    if n_local < E:                      # on a mesh: this rank's experts
+        mine = (flat_e >= e0) & (flat_e < e0 + n_local)
+        keep = keep & mine
+        safe_e = torch.where(mine, flat_e - e0, 0)
     safe_pos = torch.where(keep, flat_pos, C - 1)
     g_idx = torch.arange(G, device=dev)[:, None].expand(G, N)
     x_rep = xt.repeat_interleave(k, dim=1)               # (G, T*k, d)
     # out of place: torch.func.vmap (the multi-group server step) cannot
     # scatter a batched source into this unbatched buffer in place
-    exp_in = torch.zeros((G, E, C, d), dtype=xt.dtype, device=dev).index_put(
-        (g_idx, flat_e, safe_pos),
+    exp_in = torch.zeros((G, n_local, C, d), dtype=xt.dtype,
+                         device=dev).index_put(
+        (g_idx, safe_e, safe_pos),
         torch.where(keep[..., None], x_rep, 0).to(xt.dtype), accumulate=True)
 
     # the slabs' buckets of one expert side by side: (E, G*C, d), one
     # expert FFN call for all slabs (rows are independent)
-    exp_in = exp_in.transpose(0, 1).reshape(E, G * C, d)
+    exp_in = exp_in.transpose(0, 1).reshape(n_local, G * C, d)
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.moe_gmm import ops as gmm_ops
-        exp_out = gmm_ops.expert_ffn(p, exp_in, cfg.act)
+        exp_out = gmm_ops.expert_ffn(w, exp_in, cfg.act)
     else:
-        exp_out = _expert_ffn(p, exp_in, cfg.act)
-    exp_out = exp_out.reshape(E, G, C, d).transpose(0, 1)
+        exp_out = _expert_ffn(w, exp_in, cfg.act)
+    exp_out = exp_out.reshape(n_local, G, C, d).transpose(0, 1)
 
-    gathered = exp_out[g_idx, flat_e, safe_pos]          # (G, T*k, d)
+    gathered = exp_out[g_idx, safe_e, safe_pos]          # (G, T*k, d)
     gathered = torch.where(keep[..., None], gathered, 0)
-    w = topw.reshape(G, -1).to(xt.dtype)
-    out = (gathered * w[..., None]).reshape(G, T, k, d).sum(dim=2)
-    return out, aux
+    wk = topw.reshape(G, -1).to(xt.dtype)
+    return (gathered * wk[..., None]).reshape(G, T, k, d).sum(dim=2)
 
 
 def moe_apply(cfg, p, x, *, capacity_factor: float = 1.25):
@@ -146,14 +177,31 @@ def moe_apply(cfg, p, x, *, capacity_factor: float = 1.25):
         pin = ((lambda v: constrain(v, (axes, None, None))) if axes
                else (lambda v: v))
         out, aux = _dispatch_combine(
-            cfg, p, pin(x.reshape(shards, T // shards, d)),
+            cfg, p, pin(pin(x).reshape(shards, T // shards, d)),
             capacity_factor=capacity_factor)
-        out, aux = pin(out).reshape(T, d), aux.mean()
+        out, aux = _rows_of(pin(out).reshape(T, d), x), aux.mean()
     else:
         out, aux = _dispatch_combine(cfg, p, x.reshape(1, T, d),
                                      capacity_factor=capacity_factor)
         out, aux = out[0], aux[0]
 
     if cfg.n_shared_experts:
-        out = out + mlp(p["shared"], x.reshape(T, d), cfg.act)
-    return out.reshape(B, S, d), aux
+        out = out + mlp(p["shared"], _rows_of(x.reshape(T, d), x), cfg.act)
+    return _rows_of(out, x).reshape(B, S, d), aux
+
+
+def _rows_of(t, x):
+    """Tokens ``t`` (T, d) of ``x`` (B, S, d), laid out as x is: the token
+    dim sharded where x's batch dim is, d where x's d is, nothing else,
+    and its gradient back as ``t`` is (``laid_out``). On a device mesh
+    DTensor may shard the token dim over two mesh dims, which a view to
+    or from (B, S, d) cannot split at B; this layout it can. Anything
+    but a DTensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    keep = {0: Shard(0), 2: Shard(1)}
+    pl = [keep.get(p.dim, Replicate()) if isinstance(p, Shard)
+          else Replicate() for p in getattr(
+              x, "placements", [Replicate()] * t.device_mesh.ndim)]
+    return laid_out(t, pl)

@@ -17,6 +17,8 @@ without the ranks. ``to_placements`` maps a spec onto a real mesh.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -175,12 +177,147 @@ def unshard_dim(x, dim: int):
     return x.redistribute(x.device_mesh, pl)
 
 
+class _LaidOut(torch.autograd.Function):
+    """Identity up to layout: forward to ``placements``, backward to the
+    input's placements (a partial sum's gradient is the whole gradient
+    on each rank)."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        from torch.distributed.tensor import Replicate
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in t.placements]
+        out = t.redistribute(t.device_mesh, placements)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def laid_out(x, placements):
+    """A DTensor redistributed to ``placements``, whose gradient is
+    redistributed back to ``x``'s own placements (as the transpose of
+    ``with_sharding_constraint`` constrains the cotangent). DTensor's
+    backward may otherwise hand a view's gradient over in a layout the
+    view cannot take back (a dim sharded over two mesh dims). Anything
+    else is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return _LaidOut.apply(x, placements)
+
+
+def rows_only(x):
+    """A DTensor with only its batch dim (dim 0) sharded, as it is, and
+    every other mesh dim whole (``laid_out``: its gradient comes back in
+    x's layout). The residual stream between blocks, as the reference's
+    partitioner keeps it: each block's projections then read whole
+    activations against weights sharded over heads or features, where
+    DTensor's own choice shards the stream over ``model`` on ``d`` and
+    makes every projection a partial sum. Anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return laid_out(x, pl)
+
+
 def whole(x):
     """A DTensor's full value on every rank, as a plain tensor (which then
     takes part as a replicated value); anything else as it is. For ops
     DTensor has no rule for (``searchsorted`` in the MoE ranking)."""
     from torch.distributed.tensor import DTensor
     return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient comes back contiguous: DTensor views a
+    local gradient as it views the global one, which a strided local
+    tensor (an einsum's backward) cannot always be."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_local_shards(fn, args, roles, out_roles):
+    """``fn(*args, starts=...)`` run by each rank on its local shards, for
+    a function that is independent along some dims of its args (its
+    "roles": batch rows, heads).
+
+    ``roles[i]`` maps a role to its dim in ``args[i]`` (a DTensor, a plain
+    tensor or None); ``out_roles`` does the same for each output (a list,
+    one map an output, for a tuple of outputs; else one map). A mesh dim
+    serves a role where the first DTensor arg sharded there is sharded on
+    one of its roles' dims; every other mesh dim is made whole on every
+    arg first.
+    Each DTensor arg is laid out so: sharded along a role where its size
+    divides the mesh dim, else whole there -- and then, having used only
+    its part on this rank, its gradient over that mesh dim is a partial
+    sum. ``starts`` gives ``fn`` the global index of the first element of
+    this rank's shard of each role (0 where the role is whole), so it can
+    pick its part of a whole arg. An output map's ``"partial"`` names the
+    roles whose shards each give a part of a sum (the output then is a
+    partial sum over their mesh dims); an output the same on every shard
+    of a role leaves the role out. Plain tensors pass as they are
+    (replicated values without a role: positions). With no DTensor arg
+    this is ``fn(*args, starts={})``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dts = [(a, rl) for a, rl in zip(args, roles) if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args, starts={})
+    mesh = dts[0][0].device_mesh
+    sizes = tuple(mesh.shape)
+    assign, ways, starts, chunk = [], {}, {}, {}
+    for i in range(mesh.ndim):             # mesh dims outer to inner
+        role = None
+        for a, rl in dts:
+            p = a.placements[i]
+            if isinstance(p, Shard):
+                role = next((r for r, d in rl.items()
+                             if d % a.ndim == p.dim), None)
+            if role is not None:
+                break
+        assign.append(role)
+        if role is not None:
+            ways[role] = ways.get(role, 1) * sizes[i]
+            chunk[role] = chunk.get(role, a.shape[rl[role]]) // sizes[i]
+            starts[role] = (starts.get(role, 0)
+                            + chunk[role] * mesh.get_local_rank(i))
+
+    def layout(shape, rl):
+        return [Shard(rl[role] % len(shape))
+                if role in rl and shape[rl[role]] % ways[role] == 0
+                else Replicate() for role in assign]
+
+    def local(a, rl):
+        if not isinstance(a, DTensor):
+            return a
+        pl = layout(a.shape, rl)
+        grad = [Partial() if role is not None and isinstance(p, Replicate)
+                else p for role, p in zip(assign, pl)]
+        t = a.redistribute(mesh, pl).to_local(grad_placements=grad)
+        return _ContiguousGrad.apply(t) if t.requires_grad else t
+
+    out = fn(*[local(a, rl) for a, rl in zip(args, roles)], starts=starts)
+
+    def wrap(o, rl):
+        summed = rl.get("partial", ())
+        pl = [Partial() if role in summed
+              else Shard(rl[role] % o.ndim) if role in rl
+              else Replicate() for role in assign]
+        return DTensor.from_local(o, mesh, pl, run_check=False)
+    if isinstance(out, tuple):
+        return tuple(wrap(o, rl) for o, rl in zip(out, out_roles))
+    return wrap(out, out_roles)
 
 
 def map_specs(fn, specs, *rest):

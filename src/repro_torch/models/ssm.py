@@ -86,7 +86,31 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     B:  (b, s, n)     input projection (single group)
     C:  (b, s, n)     output projection
     Returns (y (b,s,h,p), final_state (b,h,p,n)).
+
+    On DTensors each rank scans its own batch rows and heads
+    (``_on_rows_and_heads``).
     """
+    return _on_rows_and_heads(
+        lambda *a: _ssd_scan_chunks(*a, chunk=chunk),
+        x, dt, A, B, C, initial_state)
+
+
+def _on_rows_and_heads(scan, x, dt, A, B, C, initial_state):
+    """``scan(x, dt, A, B, C, initial_state)`` of plain tensors; on
+    DTensors each rank runs it on its own batch rows and heads
+    (``on_local_shards``): every (row, head) is scanned as in the whole
+    tensors, B and C whole over the heads' mesh dim."""
+    from repro_torch.models.sharding import on_local_shards
+    rows = {"batch": 0}
+    heads = {"batch": 0, "heads": 2}
+    return on_local_shards(
+        lambda *a, starts: scan(*a), (x, dt, A, B, C, initial_state),
+        (heads, heads, {"heads": 0}, rows, rows, {"batch": 0, "heads": 1}),
+        [heads, {"batch": 0, "heads": 1}])
+
+
+def _ssd_scan_chunks(x, dt, A, B, C, initial_state, *, chunk: int):
+    """``ssd_scan_ref`` on plain tensors."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     if s % chunk:
@@ -193,9 +217,11 @@ def ssm_apply(cfg, p, x_in, cache=None):
         init = cache["state"] if cache else None
         if cfg.attn_impl == "pallas":
             from repro_torch.kernels.ssd_scan import ops as ssd_ops
-            y, state = ssd_ops.ssd_scan(xh_p, dt_p, A, B_p, C_p,
-                                        chunk=cfg.ssm_chunk,
-                                        initial_state=init)
+            y, state = _on_rows_and_heads(
+                lambda x, dt, A, B, C, init: ssd_ops.ssd_scan(
+                    x, dt, A, B, C, chunk=cfg.ssm_chunk,
+                    initial_state=init),
+                xh_p, dt_p, A, B_p, C_p, init)
         else:
             y, state = ssd_scan_ref(xh_p, dt_p, A, B_p, C_p,
                                     chunk=cfg.ssm_chunk, initial_state=init)

@@ -37,6 +37,7 @@ from repro_torch.models.layers import (cross_entropy, embed, embed_defs,
                                        head_defs, mlp, mlp_defs, rmsnorm,
                                        rmsnorm_defs)
 from repro_torch.models.params import DTYPES
+from repro_torch.models.sharding import rows_only
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +84,12 @@ def model_defs(cfg):
 def apply_embed(cfg, params, tokens, prefix_embeds=None):
     """tokens: (B,S) int; optional prefix_embeds (B,P,d) from a modality
     frontend stub. Returns hidden (B, P+S, d)."""
-    h = embed(params["embed"], tokens, DTYPES[cfg.dtype])
+    # on a mesh the lookup of a vocab-sharded table is a partial sum,
+    # reduced before anything else reads it
+    h = rows_only(embed(params["embed"], tokens, DTYPES[cfg.dtype]))
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
-    return h
+    return rows_only(h)
 
 
 def _apply_block_kind(cfg, mixer, ffn, bp, shared, h, positions, cache,
@@ -177,6 +180,7 @@ def apply_blocks(cfg, params, h, lo: int, hi: int, positions,
             h, c_i, aux = _apply_block_kind(cfg, mixer, ffn,
                                             params["blocks"][i], shared, h,
                                             positions, c_i, cache_index)
+        h = rows_only(h)
         if caches is not None:
             caches[i] = c_i
         if aux is not None:
@@ -228,6 +232,13 @@ def init_caches(cfg, batch: int, max_len: int, *, device):
             caches.append(attn_mod.init_attn_cache(cfg, mixer, batch,
                                                    max_len, dtype, device))
     return caches
+
+
+def cache_fill(name: str) -> int:
+    """The one value every element of ``init_caches``'s leaf ``name``
+    starts at: ``EMPTY_SLOT`` in a window's slot positions, 0 in every
+    other cache."""
+    return attn_mod.EMPTY_SLOT if name == "slot_pos" else 0
 
 
 def prefill(cfg, params, tokens, max_len: int, prefix_embeds=None,

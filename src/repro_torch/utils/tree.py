@@ -23,40 +23,42 @@ def tree_flatten(tree, is_leaf=None):
     as in the reference; namedtuples are nodes unless ``is_leaf`` says
     otherwise."""
     leaves = []
+    return leaves, _walk(tree, is_leaf, leaves)
 
-    def walk(node):
-        if is_leaf is not None and is_leaf(node):
-            leaves.append(node)
-            return _LEAF
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*[walk(v) for v in node])
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        if node is None:
-            return None
+
+# The recursions are module functions, not closures: a closure that calls
+# itself is a reference cycle, which would keep the leaves (a whole
+# params or gradient set) alive until the cyclic collector runs.
+def _walk(node, is_leaf, leaves):
+    if is_leaf is not None and is_leaf(node):
         leaves.append(node)
         return _LEAF
-
-    return leaves, walk(tree)
+    if isinstance(node, dict):
+        return {k: _walk(node[k], is_leaf, leaves) for k in sorted(node)}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*[_walk(v, is_leaf, leaves) for v in node])
+    if isinstance(node, (list, tuple)):
+        return type(node)(_walk(v, is_leaf, leaves) for v in node)
+    if node is None:
+        return None
+    leaves.append(node)
+    return _LEAF
 
 
 def tree_unflatten(skeleton, leaves):
-    it = iter(leaves)
+    return _build(skeleton, iter(leaves))
 
-    def build(node):
-        if node is _LEAF:
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*[build(v) for v in node])
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return node
 
-    return build(skeleton)
+def _build(node, it):
+    if node is _LEAF:
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*[_build(v, it) for v in node])
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return node
 
 
 def tree_leaves(tree, is_leaf=None):

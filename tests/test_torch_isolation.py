@@ -76,6 +76,8 @@ def test_trainer_imports_with_jax_and_reference_blocked():
             "import repro_torch.launch.mesh\n"
             "import repro_torch.launch.steps\n"
             "import repro_torch.utils.topk\n"
+            "import repro_torch.launch.dryrun\n"
+            "import repro_torch.utils.hlo\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -187,3 +187,26 @@ def test_gradient_at_the_cut_is_in_the_compute_dtype(monkeypatch):
     round_step._grad_cast(x, torch.bfloat16).backward(g)
     assert torch.equal(x.grad, g.to(torch.bfloat16).float())
     assert not torch.equal(x.grad, g)
+
+
+def test_step_leaves_its_inputs_to_reference_counting():
+    """Once the caller drops them, the params a step read and the params
+    it made are freed at once, without the cyclic collector: a training
+    loop does not collect between steps, and a params set kept until
+    then holds a whole f32 copy of the model."""
+    import gc
+    import weakref
+    _, cfg = _configs("internlm2-1.8b")
+    params = SplitModel(cfg).init(0, device="cpu")
+    _, batch = _batch(cfg)
+    step = make_s2fl_train_step(cfg, 1, 2, 0.05)
+    gc.collect()
+    gc.disable()
+    try:
+        new, loss = step(params, batch)
+        refs = [weakref.ref(t) for t in tree_leaves(params) + tree_leaves(new)]
+        del params, new, loss
+        alive = sum(r() is not None for r in refs)
+    finally:
+        gc.enable()
+    assert alive == 0, f"{alive} of {len(refs)} leaves kept by a cycle"

@@ -28,6 +28,23 @@ CASES = {
     "train_model2": (1, 2, [("internlm2-1.8b", "xla")]),
     "serve_data2": (2, 1, [("zamba2-1.2b", "xla"), ("zamba2-1.2b", "pallas"),
                            ("deepseek-v2-lite-16b", "pallas")]),
+    # four ranks (tests/test_torch_spmd_mesh2d.py): batch and heads (or
+    # experts) sharded at once; kv heads that do not divide the model dim
+    "train_data2_model2": (2, 2, [("internlm2-1.8b", "xla"),
+                                  ("zamba2-1.2b", "xla"),
+                                  ("deepseek-v2-lite-16b", "xla")]),
+    "train_model4": (1, 4, [("internlm2-1.8b", "xla")]),
+    # a modality frontend: the vocab-sharded embedding's partial sum is
+    # reduced before the prefix is concatenated
+    "train_frontend_data2_model2": (2, 2, [("internvl2-1b", "xla")]),
+    "serve_data2_model2": (2, 2, [("zamba2-1.2b", "xla"),
+                                  ("deepseek-v2-lite-16b", "xla")]),
+    "serve_model4": (1, 4, [("internlm2-1.8b", "xla")]),
+    # the kernels' wrappers (their plain versions here) on each rank's
+    # own rows and heads, or experts
+    "serve_pallas_data2_model2": (2, 2, [("zamba2-1.2b", "pallas"),
+                                         ("deepseek-v2-lite-16b",
+                                          "pallas")]),
 }
 
 
@@ -40,6 +57,7 @@ def _train(cfg, mesh, torch):
     from repro_torch.core.round_step import make_s2fl_train_step
     from repro_torch.launch.steps import build_train_step, train_config
     from repro_torch.models import SplitModel
+    from repro_torch.models.frontends import synth_frontend_embeds
     from repro_torch.models.sharding import model_param_specs, shard_params
     from repro_torch.utils.tree import tree_leaves
     step, (_, bpl), _, _ = build_train_step(cfg, mesh, split=1, n_groups=2,
@@ -61,6 +79,9 @@ def _train(cfg, mesh, torch):
                  "labels": torch.randint(0, cfg.vocab_size, (B, S),
                                          generator=gen, dtype=torch.int32),
                  "perm": torch.randperm(B, generator=gen).to(torch.int32)}
+        if cfg.frontend:
+            batch["prefix"] = synth_frontend_embeds(cfg, gen, B,
+                                                    device="cpu")
         params, loss = plain(params, batch)
         sharded, dloss = step(sharded, {k: distribute_tensor(v, mesh, bpl[k])
                                         for k, v in batch.items()})
@@ -141,7 +162,7 @@ def _rank_main(case: str, rank: int, store: str):
 
 # ------------------------------------------------------------- the test
 def _run(case: str, tmp_path) -> list:
-    """Both ranks of ``case``; their output goes to files (a full pipe
+    """Every rank of ``case``; their output goes to files (a full pipe
     would stall a rank inside a collective)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
