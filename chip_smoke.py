@@ -104,10 +104,10 @@ non-zero exit:
             and 128 chunks on 16 chains with no initial state (wgmma),
             and p, n not multiples of 8 (mma); moe_gmm, each case on its
             asserted path: deepseek's prefill (wgmma) and decode
-            (stream) shapes in bf16, bf16 x with f32 weights at the
-            prefill shape, d not a multiple of 8, and x off a 16-byte
-            boundary at the decode shape (mma), and the reference's
-            five kernel-test cases, gelu and non-128 shapes included),
+            (stream) shapes in bf16 and with bf16 x and f32 weights, d
+            not a multiple of 8, and x off a 16-byte boundary at the
+            decode shape (mma), and the reference's five kernel-test
+            cases, gelu and non-128 shapes included),
             then cold / warm device time, plain time, bound and, for
             flash, the path, the achieved TFLOP/s and the time of
             PyTorch's SDPA at both serving shapes (a yardstick only; the
@@ -115,8 +115,12 @@ non-zero exit:
             scratch's bytes, the device time of the fill kernel that
             zeroes it and the kernels one call runs; for moe_gmm at both
             serving shapes, three bf16 ``torch.bmm`` of the same shapes
-            (a yardstick only), and the stream / wgmma threshold sweep:
-            both paths' cold time at C 8 to 256 (E 64, d 2048, F 1408).
+            (a yardstick only); with f32 weights, the mma pair they took
+            before, timed on the same inputs right after, both pairs'
+            worst error, and three f32 ``torch.bmm`` with x upcast (a
+            yardstick only); and the stream / wgmma threshold sweep: both
+            paths' cold time at C 8 to 256 (E 64, d 2048, F 1408), with
+            bf16 and with f32 weights.
 7. serve    zamba2-1.2b at full width (38 layers, d_model 2048, vocab
             32000) in bf16 with attn_impl="pallas", through
             ``repro_torch.launch.serve.generate``: batch 4, prompt 2048,
@@ -130,8 +134,8 @@ non-zero exit:
             both sides stepped with the CPU's greedy tokens.
 9. serve_moe  deepseek-v2-lite-16b at full width (27 layers: one dense,
             26 MoE of 64 experts top-6 + 2 shared; MLA in every layer;
-            d_model 2048, vocab 102400) with bf16 params (the one cut:
-            f32 would hold 62.8 GB of the 80) and attn_impl="pallas",
+            d_model 2048, vocab 102400) with bf16 params (the one cut;
+            9b serves its own f32 params) and attn_impl="pallas",
             through ``generate``: batch 4, prompt 2048, 32 greedy tokens.
             One prefill must launch moe_gmm exactly 26 times and flash 27
             times, all on their wgmma paths, the whole generate moe_gmm
@@ -141,9 +145,20 @@ non-zero exit:
             prefill profile and a decode profile (device ms by kernel
             group over the decode steps of one generate, with the idle
             share).
-10. serve_moe_parity  reduced deepseek (a dense and an MoE layer, MLA)
-            in float32, card vs CPU: prefill and decode logits within
-            1e-4, both sides stepped with the CPU's greedy tokens.
+9b. serve_moe_f32  deepseek-v2-lite-16b at full width at its configured
+            dtypes: bf16 activations and f32 params (62.8 GB, drawn on
+            the card after asserting it holds under 1 GB), batch 4,
+            prompt 2048, 32 greedy tokens through ``generate``. One
+            prefill must launch moe_gmm 26 times and flash 27, all on
+            their wgmma paths; the generate moe_gmm 26 + 832 times, the
+            decode steps' on the path ``_path`` picks at C 8. Prints as
+            serve_moe does.
+10. serve_moe_parity  reduced deepseek (a dense and an MoE layer, MLA),
+            card vs CPU, both sides stepped with the CPU's greedy
+            tokens: in float32, prefill and decode logits within 1e-4;
+            then with bf16 activations and f32 params, within 2e-2 of
+            the largest |logit|, its prefill's moe_gmm (C 250) on the
+            wgmma pair and its decode steps' (C 8) on the stream pair.
 11. spmd_train  a process group of one rank (NCCL, a file store) and a
             1 x 1 DeviceMesh; internlm2-1.8b at full width through
             ``repro_torch.launch.steps.build_train_step`` at train_4k's
@@ -1392,7 +1407,9 @@ GMM_CASES = {
     "decode": (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model",
                "stream", False),
     "prefill_f32_weights": (64, 960, 2048, 1408, "silu", "bfloat16",
-                            "float32", "model", "mma", False),
+                            "float32", "model", "wgmma", False),
+    "decode_f32_weights": (64, 8, 2048, 1408, "silu", "bfloat16", "float32",
+                           "model", "stream", False),
     "decode_shifted": (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16",
                        "model", "mma", True),
     "d_not_8": (8, 96, 2044, 1400, "silu", "bfloat16", "bfloat16", "model",
@@ -1409,7 +1426,8 @@ GMM_CASES = {
     "ref_4": (3, 40, 96, 192, "gelu", "float32", "float32", "ref", "f32",
               False),
 }
-# the stream / wgmma threshold sweep: C at E 64, d 2048, F 1408
+# the stream / wgmma threshold sweep: C at E 64, d 2048, F 1408, with
+# bf16 and with f32 weights
 GMM_SWEEP_C = (8, 16, 32, 64, 128, 256)
 
 
@@ -1668,14 +1686,40 @@ def phase_lm_kernels(torch):
             extra["bmm3_bf16_ms"] = min(device_ms(
                 lambda: (torch.bmm(x, wg), torch.bmm(x, wu),
                          torch.bmm(h, wd)), True, 5) for _ in range(2))
+        if xdt == "bfloat16" and wdt == "float32" and want != "mma":
+            extra.update(gmm_beside_mma(x, wg, wu, wd, act, want, row))
         return row, extra
 
-    def gmm_sweep():
+    def gmm_beside_mma(x, wg, wu, wd, act, want, row):
+        """f32 weights: the mma pair they took before on the same inputs
+        (cold, twice, right after the row's own pair), both pairs' worst
+        error against the plain version, and three f32 torch.bmm with x
+        upcast (cuBLAS SGEMM, TF32 off; a yardstick only)."""
+        E, C, d = x.shape
+        Fd = wg.shape[-1]
+        plain = gmm.moe_gmm_plain(x, wg, wu, wd, act=act).float()
+        errs = {p: float((gmm._launch(x, wg, wu, wd, act, p).float()
+                          - plain).abs().max()) for p in (want, "mma")}
+        del plain
+        mma = [device_ms(lambda: gmm._launch(x, wg, wu, wd, act, "mma"),
+                         True, 5) for _ in range(2)]
+        h = torch.empty((E, C, Fd), dtype=torch.float32, device=x.device)
+        bmm = min(device_ms(
+            lambda: (torch.bmm(x.float(), wg), torch.bmm(x.float(), wu),
+                     torch.bmm(h, wd)), True, 5) for _ in range(2))
+        return {"mma_ms": min(mma), "mma_device_ms_runs": mma,
+                f"{want}_max_abs_err": errs[want],
+                "mma_max_abs_err": errs["mma"], "bmm3_f32_ms": bmm,
+                "faster_than_mma": row["ms"] < min(mma),
+                "faster_than_bmm3_f32": row["ms"] < bmm}
+
+    def gmm_sweep(label):
         """Cold device time of the stream and wgmma pairs at each C of
-        GMM_SWEEP_C, in turns (stream, wgmma, wgmma, stream; the better
-        of each pair); the stream kernel takes C up to 64."""
-        E, _, d, Fd = GMM_CASES["decode"][:4]
-        w = gmm_inputs(torch, (E, 1) + GMM_CASES["decode"][2:], gen)[1:]
+        GMM_SWEEP_C with the weights of GMM_CASES[label], in turns
+        (stream, wgmma, wgmma, stream; the better of each pair); the
+        stream kernels take C up to 64."""
+        E, _, d, Fd = GMM_CASES[label][:4]
+        w = gmm_inputs(torch, (E, 1) + GMM_CASES[label][2:], gen)[1:]
         rows = []
         for C in GMM_SWEEP_C:
             x = (torch.randn(E, C, d, generator=gen)
@@ -1690,8 +1734,8 @@ def phase_lm_kernels(torch):
             rows.append({"C": C, **{f"{p}_ms": min(v) for p, v in ms.items()},
                          "chosen": gmm._path(x.dtype, w[0].dtype, C, d, Fd,
                                              True)})
-        return {"shape": [E, "C", d, Fd], "stream_max_c": gmm.STREAM_MAX_C,
-                "rows": rows}
+        return {"shape": [E, "C", d, Fd], "w_dtype": GMM_CASES[label][6],
+                "stream_max_c": gmm.STREAM_MAX_C, "rows": rows}
 
     sc = SSD_CASES[0]
     x, dtt, A, Bm, Cm, init = ssd_inputs(torch, sc, torch.bfloat16, gen)
@@ -1745,11 +1789,14 @@ def phase_lm_kernels(torch):
     timed = {}
     for name, make in makers.items():
         row, extra = make()
-        timed[name] = row
+        # moe_gmm rows keep their yardsticks for the kernels line
+        timed[name] = {**row, **{k: v for k, v in extra.items() if k in (
+            "path", "mma_ms", "bmm3_bf16_ms", "bmm3_f32_ms")}}
         emit("kernel", name=name, **row, **extra)
         torch.cuda.empty_cache()
-    emit("moe_gmm_threshold_sweep", **gmm_sweep())
-    torch.cuda.empty_cache()
+    for label in ("decode", "decode_f32_weights"):
+        emit("moe_gmm_threshold_sweep", **gmm_sweep(label))
+        torch.cuda.empty_cache()
     return timed
 
 
@@ -1960,9 +2007,47 @@ def phase_serve_moe(torch, dev):
          "moe_gmm_stream": n_moe * steps, **flash}, draw_on_device=True)
 
 
-def serve_parity(torch, dev, cfg, tag, batch=2, prompt=200, steps=8):
-    """Card vs CPU on a reduced config in float32: prefill and decode
-    logits, both sides stepped with the CPU's greedy tokens."""
+def phase_serve_moe_f32(torch, dev):
+    """deepseek-v2-lite-16b at full width at its configured dtypes: bf16
+    activations, f32 params (15.7 B values, 62.8 GB), drawn on the card
+    once serve_moe's bf16 params are gone; batch 4, prompt 2048, 32
+    greedy tokens, as serve_moe (uncut). One prefill must launch moe_gmm 26 times and flash 27, all on their
+    wgmma paths; the generate moe_gmm 26 + 832 times, the decode steps'
+    on the path ``_path`` picks at C 8 with f32 weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    cfg = dataclasses.replace(get_config(DEEPSEEK), attn_impl="pallas")
+    n_moe = sum(f == "moe" for _, f in cfg.pattern())
+    if not (cfg.n_layers == 27 and n_moe == 26 and cfg.d_model == 2048
+            and cfg.n_experts == 64 and cfg.top_k == 6 and cfg.mla
+            and cfg.vocab_size == 102400 and cfg.dtype == "bfloat16"
+            and cfg.param_dtype == "float32"):
+        fail(f"serve_moe_f32: {DEEPSEEK} is not the full-width config at "
+             f"its dtypes: {cfg}")
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    if not held_gb < 1.0:
+        fail(f"serve_moe_f32: the card holds {held_gb} GB before the draw")
+    steps = 32
+    decode = gmm._path(torch.bfloat16, torch.float32, 8, cfg.d_model,
+                       cfg.moe_d_ff, True)
+    flash = {"flash_attention": cfg.n_layers,
+             "flash_attention_wgmma": cfg.n_layers}
+    prefill = {"moe_gmm": n_moe, "moe_gmm_wgmma": n_moe}
+    whole = {**prefill, "moe_gmm": n_moe * (1 + steps), **flash}
+    whole[f"moe_gmm_{decode}"] = (whole.get(f"moe_gmm_{decode}", 0)
+                                  + n_moe * steps)
+    return serve_full(torch, dev, cfg, "serve_moe_f32",
+                      {**prefill, **flash}, whole, draw_on_device=True)
+
+
+def serve_parity(torch, dev, cfg, tag, batch=2, prompt=200, steps=8,
+                 tol=SERVE_TOL, paths=None):
+    """Card vs CPU on a reduced config: prefill and decode logits, both
+    sides stepped with the CPU's greedy tokens; within ``tol`` (f32), or
+    within ``tol`` of the largest |logit| when cfg.dtype is bf16.
+    ``paths``: {phase: {moe_gmm path: launches}} the prefill and the
+    decode steps must take on the card."""
     from repro_torch.models import SplitModel
     from repro_torch.models import transformer as tf
     from repro_torch.utils.tree import tree_map
@@ -1971,22 +2056,38 @@ def serve_parity(torch, dev, cfg, tag, batch=2, prompt=200, steps=8):
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                            generator=torch.Generator().manual_seed(3))
     reset_launches()
+    by_phase = {}
     with torch.no_grad():
         lc, cc, n = tf.prefill(cfg, p_cpu, tokens, prompt + steps)
         lg, cg, _ = tf.prefill(cfg, p_gpu, tokens.to(dev), prompt + steps)
-        worst = float((lg.cpu() - lc).abs().max())
+        by_phase["prefill"] = gmm_paths()
+        worst = float((lg.float().cpu() - lc.float()).abs().max())
+        scale = float(lc.float().abs().max())
         for t in range(steps):
             tok = torch.argmax(lc[:, -1, :cfg.vocab_size], -1)[:, None]
             lc, cc = tf.decode_step(cfg, p_cpu, tok, cc, n + t)
             lg, cg = tf.decode_step(cfg, p_gpu, tok.to(dev), cg, n + t)
-            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            worst = max(worst, float((lg.float().cpu() - lc.float())
+                                     .abs().max()))
+            scale = max(scale, float(lc.float().abs().max()))
+    after = gmm_paths()
+    by_phase["decode"] = {p: after[p] - by_phase["prefill"][p]
+                          for p in after}
+    rel = cfg.dtype == "bfloat16"
     emit(tag, arch=cfg.name, n_layers=cfg.n_layers,
-         pattern=[list(k) for k in cfg.pattern()], batch=batch,
-         prompt=prompt, steps=steps, max_abs_logit_diff=worst,
-         tol=SERVE_TOL, logit_scale=float(lc.abs().max()),
+         pattern=[list(k) for k in cfg.pattern()], dtype=cfg.dtype,
+         param_dtype=cfg.param_dtype, batch=batch, prompt=prompt,
+         steps=steps, max_abs_logit_diff=worst, tol=tol,
+         tol_relative_to_logit_scale=rel, logit_scale=scale,
+         moe_gmm_paths=by_phase,
          card_launches={k: v for k, v in launches().items() if v})
-    if not worst <= SERVE_TOL:
-        fail(f"{tag}: card vs CPU logits differ by {worst}")
+    if not worst <= tol * (scale if rel else 1.0):
+        fail(f"{tag}: card vs CPU logits differ by {worst} (scale "
+             f"{scale})")
+    for phase, want in (paths or {}).items():
+        got = {p: v for p, v in by_phase[phase].items() if v}
+        if got != want:
+            fail(f"{tag}: the {phase} ran moe_gmm {got}, want {want}")
 
 
 def phase_serve_parity(torch, dev):
@@ -2002,7 +2103,10 @@ def phase_serve_parity(torch, dev):
 
 
 def phase_serve_moe_parity(torch, dev):
-    """Reduced deepseek: MLA in both layers, a dense and an MoE FFN."""
+    """Reduced deepseek: MLA in both layers, a dense and an MoE FFN; in
+    float32, then with bf16 activations and f32 params (the full config's
+    dtypes): its prefill (C 250) must take the wgmma pair and its decode
+    steps (C 8) the stream pair, with f32 weights."""
     import dataclasses
     from repro_torch.configs import get_config, make_reduced
     cfg = dataclasses.replace(make_reduced(get_config(DEEPSEEK)),
@@ -2011,6 +2115,14 @@ def phase_serve_moe_parity(torch, dev):
             or {f for _, f in cfg.pattern()} != {"dense", "moe"}):
         fail(f"serve_moe_parity: unexpected reduced config {cfg}")
     serve_parity(torch, dev, cfg, "serve_moe_parity")
+    mixed = dataclasses.replace(cfg, dtype="bfloat16")
+    steps, n_moe = 8, sum(f == "moe" for _, f in cfg.pattern())
+    if mixed.param_dtype != "float32":
+        fail(f"serve_moe_parity: params {mixed.param_dtype}, want float32")
+    serve_parity(torch, dev, mixed, "serve_moe_parity_bf16_f32_params",
+                 steps=steps, tol=SERVE_BF16_TOL,
+                 paths={"prefill": {"wgmma": n_moe},
+                        "decode": {"stream": n_moe * steps}})
 
 
 
@@ -2722,6 +2834,7 @@ def main() -> int:
     served = phase_serve(torch, dev)
     phase_serve_parity(torch, dev)
     served_moe = phase_serve_moe(torch, dev)
+    served_moe_f32 = phase_serve_moe_f32(torch, dev)
     phase_serve_moe_parity(torch, dev)
     with tempfile.TemporaryDirectory() as d:
         mesh = spmd_mesh(torch, Path(d))
@@ -2736,7 +2849,9 @@ def main() -> int:
 
     flash_by_serve = {"serve": served["flash_attention"],
                       "serve_moe": served_moe["flash_attention"],
+                      "serve_moe_f32": served_moe_f32["flash_attention"],
                       "spmd_serve": spmd_served["flash_attention"]}
+    gmm_by_serve = {"serve_moe": served_moe, "serve_moe_f32": served_moe_f32}
     ssd_by_serve = {"serve": served["ssd_scan"],
                     "spmd_serve": spmd_served["ssd_scan"]}
     main_path = {"int8_quantize": seq["int8_quantize"],
@@ -2745,7 +2860,7 @@ def main() -> int:
                  "sparse_combine": f_topk["sparse_combine"],
                  "flash_attention": sum(flash_by_serve.values()),
                  "ssd_scan": sum(ssd_by_serve.values()),
-                 "moe_gmm": served_moe["moe_gmm"]}
+                 "moe_gmm": sum(c["moe_gmm"] for c in gmm_by_serve.values())}
     replaces = {
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:48",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:80",
@@ -2766,6 +2881,7 @@ def main() -> int:
     # row's own, the others ride along
     by_kernel_path = {p: served[f"flash_attention_{p}"]
                       + served_moe[f"flash_attention_{p}"]
+                      + served_moe_f32[f"flash_attention_{p}"]
                       + spmd_served.get(f"flash_attention_{p}", 0)
                       for p in ("wgmma", "fp32")}
     also = {"flash_attention": {"launches_by_path": flash_by_serve,
@@ -2773,8 +2889,11 @@ def main() -> int:
                                 "mla": timed["flash_attention_mla"],
                                 "prefill_32k": at_32k["flash_attention"]},
             "moe_gmm": {"launches_by_path": {
-                p: served_moe[f"moe_gmm_{p}"] for p in gmm_paths()},
-                "decode": timed["moe_gmm_decode"]},
+                tag: {p: c[f"moe_gmm_{p}"] for p in gmm_paths()}
+                for tag, c in gmm_by_serve.items()},
+                "decode": timed["moe_gmm_decode"],
+                "prefill_f32_weights": timed["moe_gmm_prefill_f32_weights"],
+                "decode_f32_weights": timed["moe_gmm_decode_f32_weights"]},
             "ssd_scan": {"launches_by_path": ssd_by_serve,
                          "launches_by_kernel_path": {
                              p: served[f"ssd_scan_{p}"]

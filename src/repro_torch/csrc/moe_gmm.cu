@@ -11,7 +11,9 @@
 // C 960, d 2048, F 1408, bf16) the three products are 1.06 TFLOP
 // against 1.61 GB of inputs and output, so operations bound it (1.08 ms
 // at 989 TFLOP/s). At its decode shape (C 8) the 1.1 GB of expert
-// weights bound it (0.33 ms at 3.35 TB/s).
+// weights bound it (0.33 ms at 3.35 TB/s). With the config's own f32
+// params the weights are 2.2 GB (0.66 ms at C 8), and the hi / lo
+// products below make 7/3 of the work (~2.5 ms at C 960).
 //
 // Design. The TPU kernel keeps a (rows, d) f32 accumulator in VMEM
 // across F tiles, so the (C, F) hidden never reaches memory. At d = 2048
@@ -23,29 +25,32 @@
 // Four paths; the wrapper (kernels/moe_gmm/kernel.py, _path) picks one
 // from the dtypes, C, d, F and the alignment alone, and the C entry
 // refuses a path whose preconditions fail:
-// - "wgmma" (bf16 x and weights, C above the stream threshold, d and F
-//   multiples of 8, 16-byte aligned tensors): the serving prefill. For
-//   operations: wgmma fed by TMA, a producer warpgroup and two consumer
-//   warpgroups (below).
+// - "wgmma" (bf16 x, C above the stream threshold, d and F multiples
+//   of 8, 16-byte aligned tensors): the serving prefill. For
+//   operations: wgmma fed by TMA. bf16 weights: a producer warpgroup
+//   and two consumer warpgroups, operands from shared memory (below).
+//   f32 weights: the weights split hi / lo in registers as wgmma's A
+//   operand, h kept as a hi / lo pair (below).
 // - "stream" (the same, C at most the threshold): the serving decode.
-//   For bytes: the weights stream through shared memory by TMA at close
-//   to the card's bandwidth (below).
-// - "mma" (bf16 x with f32 weights; d or F not multiples of 8; tensors
-//   off 16 bytes): mma.sync.m16n8k16 on the tensor cores, operands
-//   staged through registers. An operand that is f32 at the source (h;
-//   the weights when the params are f32) is split into a bf16 high part
-//   and a bf16 remainder, and the product takes hi*hi + hi*lo + lo*hi,
-//   so it keeps ~16 bits of mantissa instead of bf16's 8. Row tiles are
-//   64 rows, or 16 when C <= 16.
+//   For bytes: the weights, bf16 or f32, stream through shared memory
+//   by TMA at close to the card's bandwidth (below).
+// - "mma" (bf16 x that TMA cannot take: d or F not multiples of 8,
+//   tensors off 16 bytes): mma.sync.m16n8k16 on the tensor cores,
+//   operands staged through registers. An operand that is f32 at the
+//   source (h; the weights when the params are f32) is split into a
+//   bf16 high part and a bf16 remainder, and the product takes hi*hi +
+//   hi*lo + lo*hi, so it keeps ~16 bits of mantissa instead of bf16's
+//   8. Row tiles are 64 rows, or 16 when C <= 16.
 // - "f32" (f32 x): the fp32 cores, fmaf in order over the contracted
 //   dim, so the result stays within 1e-5 of the f32 arithmetic (the
 //   reference's tolerance); bf16 weights are widened exactly.
-// On the two TMA paths h is rounded to bf16 once, as flash rounds P:
-// the card's error stays inside the bf16 tolerance (PERF.md has the
-// bound and the measured error); the other paths keep h in f32. Rows,
-// columns and the contracted dim are guarded everywhere (zero-filled by
-// TMA's out-of-bounds fill on the TMA paths), so no dim has to be a
-// multiple of a tile (the reference's sweep has E 3, C 40, d 96, F 192).
+// With bf16 weights the two TMA paths round h to bf16 once, as flash
+// rounds P: the card's error stays inside the bf16 tolerance (PERF.md
+// has the bound and the measured error). With f32 weights they keep h
+// as hi + lo, and the other paths keep it in f32. Rows, columns and the
+// contracted dim are guarded everywhere (zero-filled by TMA's
+// out-of-bounds fill on the TMA paths), so no dim has to be a multiple
+// of a tile (the reference's sweep has E 3, C 40, d 96, F 192).
 //
 // C interface (loaded with ctypes): returns the first non-zero
 // cudaGetLastError() of the two launches, else 0.
@@ -389,16 +394,37 @@ int launch_mma(const TA* A, const TB* B, const TB* B2, TO* out, int E,
 // products in flight (wgmma.wait_group 1) while the next is issued.
 constexpr int kBox = 64 * 128;     // bytes of a box of 64 rows
 
-// A contiguous bf16 (outer, rows, inner) tensor as a 3-D map of
-// 64 x box_rows boxes.
+// A contiguous bf16 (or f32) (outer, rows, inner) tensor as a 3-D map
+// of 128-byte x box_rows boxes: 64 bf16 or 32 f32 columns.
 int make_map3(CUtensorMap* map, const void* ptr, int inner, int rows,
-              int outer, int box_rows) {
+              int outer, int box_rows, bool f32 = false) {
+  const int es = f32 ? 4 : 2;
   const cuuint64_t sizes[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
                                (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)rows * inner * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  return tma_map_bf16(map, ptr, 3, sizes, strides, box);
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * es,
+                                 (cuuint64_t)rows * inner * es};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / es), (cuuint32_t)box_rows,
+                             1};
+  return tma_map(map,
+                 f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 ptr, 3, sizes, strides, box);
+}
+
+// -> blocks of `kern` the card holds at once, into *out; 0 or a
+// cudaError_t
+template <typename K>
+int resident_blocks(K kern, int threads, int smem, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce == cudaSuccess)
+    ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                       threads, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  *out = sms * (per_sm > 0 ? per_sm : 1);
+  return 0;
 }
 
 // The "wgmma" path (prefill). One block owns one (expert, 128-row tile,
@@ -685,15 +711,8 @@ int launch_stream(const void* w, const void* w2, const void* xin, void* out,
   if (ce != cudaSuccess) return (int)ce;
   static int resident = 0;                          // blocks the card holds
   if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    ce = cudaGetDevice(&dev);
-    if (ce == cudaSuccess)
-      ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (ce == cudaSuccess)
-      ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                         kSThreads, T::kSmem);
-    if (ce != cudaSuccess) return (int)ce;
-    resident = sms * (per_sm > 0 ? per_sm : 1);
+    err = resident_blocks(kern, kSThreads, T::kSmem, &resident);
+    if (err != 0) return err;
   }
   const int items = E * ((M + 63) / 64);
   const int grid = items < resident ? items : resident;
@@ -711,6 +730,326 @@ int run_stream(const void* x, const void* wg, const void* wu, const void* wd,
                                          stream);
   if (err) return err;
   return launch_stream<false, N>(wd, nullptr, h, y, E, C, d, F, act, stream);
+}
+
+// ---- bf16 x with f32 weights on wgmma, fed by TMA ----
+//
+// The weights stay f32 in device memory and reach shared memory by TMA
+// as f32 boxes (32 columns of 128 bytes, 128-byte swizzle). Each
+// consumer thread reads its A fragments of the weight tile from there,
+// splits each value into hi = bf16(w) and lo = bf16(w - hi), and issues
+// wgmma with A from registers (the RS form), so the operands are
+// swapped as on the stream path: the weight tile is the 64-row M side
+// (output columns) and the bucket's rows are N, out^T = W^T x^T. x is
+// bf16, exact, and is B (K-major) with no remainder: gate and up take
+// x w_hi + x w_lo. The gate/up epilogue writes h as a hi / lo pair of
+// bf16 (h_hi = bf16(h), h_lo = bf16(h - h_hi)), interleaved by 32
+// columns: each row of the workspace is Fp / 32 groups of 32 hi then
+// the same 32 lo (Fp: F rounded up to 32, the pad written as zeros), so
+// one 128-byte TMA box carries the hi and the lo of 32 f, and the down
+// kernel's k-slab is 32 f deep with the usual K-major descriptors. Down
+// takes wd_hi h_hi + wd_lo h_hi + wd_hi h_lo. So no weight and no h
+// value enters a product as a single bf16: each keeps ~16 bits of
+// mantissa, the products of the "mma" path.
+//
+// One kernel template serves both paths: a block is WM x WN consumer
+// warpgroups and a producer warp, persistent over (expert, row tile,
+// column tile) items (column tiles fastest, so the blocks in flight
+// share an expert's weights and rows in L2). Consumer (wm, wn) owns
+// columns 64 wm.. and rows N wn.. of the block's tile. Per 16-deep
+// k-step it splits the step's fragments while the previous step's
+// wgmma group runs (two fragment buffers, wgmma.wait_group 1).
+// - "stream" (decode, C <= the threshold): one consumer, N 8 to 64,
+//   two blocks an SM; the weights stream once.
+// - "wgmma" (prefill): gate/up 1 x 2 consumers of 128 rows (a 64 x 256
+//   tile, 64 KB stages, 3 of them), down 2 x 1 of 256 rows (128 x 256,
+//   48 KB stages, 4).
+constexpr int kWCols = 32;                      // f32 columns of a box
+
+template <bool GATED, int N, int WM, int WN>
+struct WTile {
+  static constexpr int kNW = GATED ? 2 : 1;             // weights
+  static constexpr int kK = GATED ? 64 : 32;            // k a slab
+  static constexpr int kBoxW = kK * 128;                // one f32 box
+  static constexpr int kW = WM * (64 / kWCols) * kBoxW; // a weight's tile
+  static constexpr int kX = N * 128;                    // a consumer's rows
+  static constexpr int kStage = kNW * kW + WN * kX;
+  static constexpr int kConsumers = 128 * WM * WN;
+  // two consumers: a producer warpgroup that hands its registers to them
+  // (setmaxnreg; ptxas budgets a 288-thread block as 384 threads and
+  // spilled the gate/up consumers at 168); one: a producer warp
+  static constexpr bool kDonor = WM * WN > 1;
+  static constexpr int kThreads = kConsumers + (kDonor ? 128 : 32);
+  static constexpr int kBlocksPerSM = kDonor ? 1 : 2;
+  static constexpr int kBudget = (WM * WN == 1 ? 104 : 200) * 1024;
+  static constexpr int kStages =
+      kBudget / kStage > 12 ? 12 : kBudget / kStage;
+  static constexpr int kSmem = kStages * kStage + 16 * kStages + 1024;
+  static constexpr int kCols = 64 * WM, kRows = N * WN;
+  static_assert(kStages >= 2, "ring");
+};
+
+// v0, v1 (consecutive k of one row of A) -> packed bf16 hi, and lo
+__device__ __forceinline__ uint32_t split2(float v0, float v1,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// GATED: W / W2 = Wg / Wu (E, K = d, M = F) f32, X = x (E, C, d) bf16,
+// out = h (E, C, 2 Fp) as hi / lo groups of 32 (above). Else W = Wd
+// (E, K = F, M = d) f32, X = that h, out = y (E, C, d) bf16.
+template <bool GATED, int N, int WM, int WN>
+__global__ void __launch_bounds__(WTile<GATED, N, WM, WN>::kThreads,
+                                  WTile<GATED, N, WM, WN>::kBlocksPerSM)
+gmm_w32_kernel(const __grid_constant__ CUtensorMap tw,
+               const __grid_constant__ CUtensorMap tw2,
+               const __grid_constant__ CUtensorMap tx,
+               __nv_bfloat16* __restrict__ out, int E, int C, int M, int K,
+               int act) {
+  using T = WTile<GATED, N, WM, WN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + T::kStages * T::kStage;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto freed = [&](int s) { return bars + 8 * (T::kStages + s); };
+  const int ct = (M + T::kCols - 1) / T::kCols;
+  const int per_e = ct * ((C + T::kRows - 1) / T::kRows);
+  const int items = E * per_e, nk = (K + T::kK - 1) / T::kK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(freed(s), T::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the role, uniform as ptxas sees it (a shuffle from lane 0), so that
+  // each role's code is allocated its setmaxnreg count
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == WM * WN) {                            // the producer
+    if constexpr (T::kDonor)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(kGProducerRegs));
+    if (threadIdx.x == T::kConsumers) {
+      int it = 0;                                   // slabs so far
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int e = item / per_e, r = item % per_e;
+        const int m0 = (r % ct) * T::kCols, c0 = (r / ct) * T::kRows;
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int s = it % T::kStages;
+          if (it >= T::kStages) mbar_wait(freed(s), (it / T::kStages - 1) & 1);
+          const uint32_t st = base + s * T::kStage;
+          mbar_expect_tx(full(s), T::kStage);
+#pragma unroll
+          for (int w = 0; w < T::kNW; ++w)
+#pragma unroll
+            for (int b = 0; b < T::kCols / kWCols; ++b)
+              tma_load3(st + w * T::kW + b * T::kBoxW, w ? &tw2 : &tw,
+                        full(s), m0 + b * kWCols, ks * T::kK, e);
+          // x: k 64 ks..; h: f 32 ks.., its hi and lo (64 columns)
+#pragma unroll
+          for (int wn = 0; wn < WN; ++wn)
+            tma_load3(st + T::kNW * T::kW + wn * T::kX, &tx, full(s),
+                      ks * 64, c0 + wn * N, e);
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (T::kDonor)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kGConsumerRegs));
+  const int wm = role % WM, wn = role / WM;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // A fragment of a 16-deep k-step at row k0 = 16 kk of the tile: A's
+  // rows (output columns) 16 warp + g and + 8, its k pairs 2t, 2t + 1
+  // and + 8. Weight column c sits in box c / 32 at 16-byte chunk
+  // (c % 32) / 4, XORed with the k row's low 3 bits (the 128-byte
+  // swizzle): off[dr][dc], k row 2t + dr, column + 8 dc. Rows + 8 are
+  // 1024 bytes on, with the same swizzle. A warp's 32 reads of one value
+  // fall on 32 banks.
+  int off[2][2];
+  {
+    const int box = 2 * wm + (warp >> 1);
+    const int chunk = 4 * (warp & 1) + (g >> 2);
+#pragma unroll
+    for (int dr = 0; dr < 2; ++dr)
+#pragma unroll
+      for (int dc = 0; dc < 2; ++dc) {
+        const int row = 2 * t + dr;
+        off[dr][dc] = box * T::kBoxW + row * 128 +
+                      (((chunk + 2 * dc) ^ row) << 4) + (g & 3) * 4;
+      }
+  }
+  const auto ldw = [&](const unsigned char* p, int dr, int dc) {
+    return *reinterpret_cast<const float*>(p + off[dr][dc]);
+  };
+
+  float acc[T::kNW][N / 2];
+  uint32_t fh[2][T::kNW][4], fl[2][T::kNW][4];     // two k-steps' buffers
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int e = item / per_e, r = item % per_e;
+    const int m0 = (r % ct) * T::kCols + 64 * wm;
+    const int c0 = (r / ct) * T::kRows + N * wn;
+#pragma unroll
+    for (int w = 0; w < T::kNW; ++w)
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) acc[w][j] = 0.f;
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int s = it % T::kStages;
+      mbar_wait(full(s), (it / T::kStages) & 1);
+      const unsigned char* sw = sbase + s * T::kStage;
+      const uint64_t dx = sw128_desc(
+          base + s * T::kStage + T::kNW * T::kW + wn * T::kX, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < T::kK / 16; ++kk) {
+        const int b = kk & 1;
+#pragma unroll
+        for (int w = 0; w < T::kNW; ++w) {
+          const unsigned char* p = sw + w * T::kW + kk * 16 * 128;
+          // a[0]: column c, k 2t, 2t + 1; a[1]: c + 8; a[2], a[3]: k + 8
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const unsigned char* pq = p + (q >> 1) * 8 * 128;
+            fh[b][w][q] = split2(ldw(pq, 0, q & 1), ldw(pq, 1, q & 1),
+                                 fl[b][w][q]);
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+        pin(fh[b]);
+        pin(fl[b]);
+        wg_fence();
+        if (GATED) {
+          // 32 bytes (16 k) a step along x's K-major rows
+#pragma unroll
+          for (int w = 0; w < T::kNW; ++w) {
+            Wgmma<N>::template rs<0>(acc[w], fh[b][w], dx + kk * 2);
+            Wgmma<N>::template rs<0>(acc[w], fl[b][w], dx + kk * 2);
+          }
+        } else {
+          // h's row of 64: f 0-31 hi (16 a step), then their lo
+          Wgmma<N>::template rs<0>(acc[0], fh[b][0], dx + kk * 2);
+          Wgmma<N>::template rs<0>(acc[0], fl[b][0], dx + kk * 2);
+          Wgmma<N>::template rs<0>(acc[0], fh[b][0], dx + 4 + kk * 2);
+        }
+        wg_commit();
+        wg_wait<1>();                               // the step before
+#pragma unroll
+        for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+        pin(fh[b ^ 1]);
+        pin(fl[b ^ 1]);
+        if (kk == 0 && ks > 0)                      // slab ks - 1 is done
+          mbar_arrive(freed((it - 1) % T::kStages));
+      }
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int w = 0; w < T::kNW; ++w) pin(acc[w]);
+    pin(fh[0]);
+    pin(fl[0]);
+    pin(fh[1]);
+    pin(fl[1]);
+    mbar_arrive(freed((it - 1) % T::kStages));
+
+    // accumulator (transposed): output columns m0 + 16 warp + g and + 8,
+    // bucket rows 2t, 2t + 1 of each 8
+    const int Fp = (M + 31) & ~31;                  // GATED: h's groups
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + warp * 16 + g + (q >> 1) * 8;
+        const int row = c0 + j * 8 + 2 * t + (q & 1);
+        if (row >= C) continue;
+        if (GATED) {
+          if (m >= Fp) continue;                    // the pad is zeros
+          const float v = act_f(acc[0][4 * j + q], act) *
+                          acc[T::kNW - 1][4 * j + q];
+          const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+          __nv_bfloat16* p = out + ((size_t)e * C + row) * (2 * Fp) +
+                             (m >> 5) * 64 + (m & 31);
+          p[0] = hi;
+          p[32] = __float2bfloat16_rn(v - __bfloat162float(hi));
+        } else {
+          if (m >= M) continue;
+          out[((size_t)e * C + row) * M + m] =
+              __float2bfloat16_rn(acc[0][4 * j + q]);
+        }
+      }
+  }
+}
+
+// GATED: w / w2 = Wg / Wu, xin = x, out = h (hi / lo groups), M = F,
+// K = d. Else w = Wd, xin = h, out = y, M = d, K = F.
+template <bool GATED, int N, int WM, int WN>
+int launch_w32(const void* w, const void* w2, const void* xin, void* out,
+               int E, int C, int M, int K, int act, cudaStream_t stream) {
+  using T = WTile<GATED, N, WM, WN>;
+  CUtensorMap tw, tw2, tx;
+  int err = make_map3(&tw, w, M, K, E, T::kK, true);
+  if (err == 0) err = make_map3(&tw2, GATED ? w2 : w, M, K, E, T::kK, true);
+  // x: (E, C, d) bf16; h: (E, C, 2 Fp) bf16, Fp = F rounded up to 32
+  if (err == 0)
+    err = make_map3(&tx, xin, GATED ? K : 2 * ((K + 31) & ~31), C, E, N);
+  if (err != 0) return err;
+  auto kern = gmm_w32_kernel<GATED, N, WM, WN>;
+  cudaError_t ce = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (ce != cudaSuccess) return (int)ce;
+  static int resident = 0;                          // blocks the card holds
+  if (resident == 0) {
+    err = resident_blocks(kern, T::kThreads, T::kSmem, &resident);
+    if (err != 0) return err;
+  }
+  const int items = E * ((M + T::kCols - 1) / T::kCols) *
+                    ((C + T::kRows - 1) / T::kRows);
+  const int grid = items < resident ? items : resident;
+  kern<<<grid, T::kThreads, T::kSmem, stream>>>(
+      tw, tw2, tx, (__nv_bfloat16*)out, E, C, M, K, act);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int run_w32_stream(const void* x, const void* wg, const void* wu,
+                   const void* wd, void* h, void* y, int E, int C, int d,
+                   int F, int act, cudaStream_t stream) {
+  const int err = launch_w32<true, N, 1, 1>(wg, wu, x, h, E, C, F, d, act,
+                                            stream);
+  if (err) return err;
+  return launch_w32<false, N, 1, 1>(wd, nullptr, h, y, E, C, d, F, act,
+                                    stream);
+}
+
+// bf16 x, f32 weights; h an (E, C, 2 Fp) bf16 workspace (hi / lo groups)
+int run_w32(bool stream_path, const void* x, const void* wg, const void* wu,
+            const void* wd, void* h, void* y, int E, int C, int d, int F,
+            int act, cudaStream_t stream) {
+  if (stream_path) {
+    if (C <= 8) return run_w32_stream<8>(x, wg, wu, wd, h, y, E, C, d, F,
+                                         act, stream);
+    if (C <= 16) return run_w32_stream<16>(x, wg, wu, wd, h, y, E, C, d, F,
+                                           act, stream);
+    if (C <= 32) return run_w32_stream<32>(x, wg, wu, wd, h, y, E, C, d, F,
+                                           act, stream);
+    return run_w32_stream<64>(x, wg, wu, wd, h, y, E, C, d, F, act, stream);
+  }
+  const int err = launch_w32<true, 128, 1, 2>(wg, wu, x, h, E, C, F, d, act,
+                                              stream);
+  if (err) return err;
+  return launch_w32<false, 256, 2, 1>(wd, nullptr, h, y, E, C, d, F, act,
+                                      stream);
 }
 
 // bf16 x and weights; h an (E, C, F) bf16 workspace
@@ -765,15 +1104,16 @@ bool a16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// x (E, C, d), wg / wu (E, d, F), wd (E, F, d), all contiguous; h an
-// (E, C, F) workspace, f32 on paths 0-1 and bf16 on paths 2-3; y
-// (E, C, d) in x's dtype. x_dtype / w_dtype: 0 float32, 1 bfloat16 (the
-// three weights alike). act: 0 silu, 1 gelu (tanh approximation).
-// path, as the wrapper's _path chose it: 0 "f32" (x f32), 1 "mma" (x
-// bf16), 2 "stream" and 3 "wgmma" (x and weights bf16, d and F
-// multiples of 8, every pointer 16-byte aligned; stream: C <= 64). A
-// path that does not take these inputs returns cudaErrorInvalidValue
-// and launches nothing.
+// x (E, C, d), wg / wu (E, d, F), wd (E, F, d), all contiguous; y
+// (E, C, d) in x's dtype; h a workspace: f32 (E, C, F) on paths 0-1,
+// bf16 (E, C, F) on paths 2-3 with bf16 weights, and with f32 weights
+// bf16 (E, C, 2 Fp), Fp = F rounded up to 32 (h's hi / lo groups).
+// x_dtype / w_dtype: 0 float32, 1 bfloat16 (the three weights alike).
+// act: 0 silu, 1 gelu (tanh approximation). path, as the wrapper's
+// _path chose it: 0 "f32" (x f32), 1 "mma" (x bf16), 2 "stream" and 3
+// "wgmma" (x bf16, d and F multiples of 8, every pointer 16-byte
+// aligned; stream: C <= 64). A path that does not take these inputs
+// returns cudaErrorInvalidValue and launches nothing.
 extern "C" int moe_gmm(const void* x, const void* wg, const void* wu,
                        const void* wd, void* h, void* y, int x_dtype,
                        int w_dtype, int path, int E, int C, int d, int F,
@@ -790,9 +1130,12 @@ extern "C" int moe_gmm(const void* x, const void* wg, const void* wu,
     return run_cores<__nv_bfloat16>(x, wg, wu, wd, (float*)h, y, path == 0,
                                     E, C, d, F, act, st);
   }
-  if ((path == 2 || path == 3) && x_dtype == 1 && w_dtype == 1 &&
-      d % 8 == 0 && F % 8 == 0 && a16(x) && a16(wg) && a16(wu) && a16(wd) &&
-      a16(h) && a16(y) && (path == 3 || C <= kStreamMaxC))
-    return run_tma(path == 2, x, wg, wu, wd, h, y, E, C, d, F, act, st);
+  if ((path == 2 || path == 3) && x_dtype == 1 && d % 8 == 0 &&
+      F % 8 == 0 && a16(x) && a16(wg) && a16(wu) && a16(wd) && a16(h) &&
+      a16(y) && (path == 3 || C <= kStreamMaxC)) {
+    if (w_dtype == 1)
+      return run_tma(path == 2, x, wg, wu, wd, h, y, E, C, d, F, act, st);
+    return run_w32(path == 2, x, wg, wu, wd, h, y, E, C, d, F, act, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

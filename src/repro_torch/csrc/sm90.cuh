@@ -141,8 +141,9 @@ __device__ __forceinline__ void wg_wait() {
 
 // wgmma m64nNk16, f32 accumulators, bf16 operands. ss: A and B from
 // shared memory through descriptors; TA / TB set the transpose bit of A
-// / B (0: K-major, 1: MN-major, which bf16 allows for both). rs: A
-// (bf16 pairs) from registers, B MN-major. acc 0 overwrites d.
+// / B (0: K-major, 1: MN-major, which bf16 allows for both); acc 0
+// overwrites d. rs: A (bf16 pairs) from registers, accumulating; TB as
+// for ss, MN-major unless given.
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<8> {
@@ -156,6 +157,21 @@ template <> struct Wgmma<8> {
         "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
+  static __device__ __forceinline__ void rs(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -171,6 +187,22 @@ template <> struct Wgmma<16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -188,6 +220,24 @@ template <> struct Wgmma<32> {
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -211,7 +261,9 @@ template <> struct Wgmma<64> {
           "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
   }
-  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
@@ -222,14 +274,15 @@ template <> struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -262,7 +315,9 @@ template <> struct Wgmma<128> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
   }
-  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
@@ -277,7 +332,7 @@ template <> struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -289,12 +344,15 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
 template <> struct Wgmma<192> {
-  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
   static __device__ __forceinline__ void rs(float (&d)[96],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
@@ -313,7 +371,7 @@ template <> struct Wgmma<192> {
         "%72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, "
         "%88, %89, %90, %91, %92, %93, %94, %95"
-        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -330,7 +388,8 @@ template <> struct Wgmma<192> {
           "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -382,7 +441,9 @@ template <> struct Wgmma<256> {
           "+f"(d[126]), "+f"(d[127])
         : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
   }
-  // O += A B, A (bf16 pairs) in registers, B MN-major in shared memory
+  // O += A B, A (bf16 pairs) in registers; TB: B K-major (0) or
+  // MN-major (1) in shared memory
+  template <int TB = 1>
   static __device__ __forceinline__ void rs(float (&d)[128],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
@@ -405,7 +466,7 @@ template <> struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -428,7 +489,8 @@ template <> struct Wgmma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -458,22 +520,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (sizes innermost first, byte strides
-// of the outer dims), boxes of `box`, 128-byte swizzle, zeros outside
-// the tensor; -> 0 or a cudaError_t.
-inline int tma_map_bf16(CUtensorMap* map, const void* ptr, int rank,
-                        const cuuint64_t* sizes, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+// A tensor map of `type` and `rank` dims (sizes innermost first, byte
+// strides of the outer dims), boxes of `box`, 128-byte swizzle, zeros
+// outside the tensor; -> 0 or a cudaError_t.
+inline int tma_map(CUtensorMap* map, CUtensorMapDataType type,
+                   const void* ptr, int rank, const cuuint64_t* sizes,
+                   const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(ptr), sizes,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                        sizes, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int tma_map_bf16(CUtensorMap* map, const void* ptr, int rank,
+                        const cuuint64_t* sizes, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  return tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, sizes,
+                 strides, box);
 }
 
 }  // namespace

@@ -10,8 +10,11 @@ they are, f32 by default, beside bf16 activations).
 On a CUDA tensor the wrapper launches the hand-written Hopper kernels
 (``csrc/moe_gmm.cu``: a gate/up kernel into a workspace, then a down
 kernel) or raises; ``_path`` picks the pair from the dtypes, C, d, F
-and the alignment alone. On a CPU tensor it runs the plain version
-beside it, the reference's ``moe_gmm/ref.py``. ``LAUNCHES["moe_gmm"]``
+and the alignment alone. With f32 weights the TMA paths split each
+weight into a bf16 high part and remainder on the card and keep h as
+such a pair, so neither enters a product as a single bf16. On a CPU
+tensor it runs the plain version beside it, the reference's
+``moe_gmm/ref.py``. ``LAUNCHES["moe_gmm"]``
 counts wrapper calls that launched a kernel pair,
 ``LAUNCHES["moe_gmm_<path>"]`` those of each path.
 """
@@ -32,10 +35,10 @@ _SIGNATURES = {
 }
 # the C entry's path codes
 PATHS = {"f32": 0, "mma": 1, "stream": 2, "wgmma": 3}
-# The largest C that takes the "stream" path (bf16, decode-sized
-# buckets); above it "wgmma". Measured on an H100 at E 64, d 2048,
-# F 1408 (PERF.md, the threshold sweep of chip_smoke.py); the stream
-# kernel takes C up to 64.
+# The largest C that takes the "stream" path (decode-sized buckets);
+# above it "wgmma". Measured on an H100 at E 64, d 2048, F 1408, with
+# bf16 and with f32 weights (PERF.md, the threshold sweep of
+# chip_smoke.py); the stream kernels take C up to 64.
 STREAM_MAX_C = 64
 
 LAUNCHES = {"moe_gmm": 0, **{f"moe_gmm_{p}": 0 for p in PATHS}}
@@ -90,12 +93,12 @@ def _check(x, wg, wu, wd, act):
 def _path(x_dtype, w_dtype, C: int, d: int, F: int, aligned: bool) -> str:
     """The kernel pair a CUDA call runs. "f32" (the fp32 cores): float32
     x. "stream" (C <= STREAM_MAX_C) or "wgmma" (tensor cores fed by
-    TMA): bf16 x and weights with d and F multiples of 8 and ``aligned``
-    tensors. "mma" (tensor cores, operands staged through registers):
-    the other bf16 x, f32 weights included."""
+    TMA): bf16 x, bf16 or f32 weights, d and F multiples of 8 and
+    ``aligned`` tensors. "mma" (tensor cores, operands staged through
+    registers): the other bf16 x."""
     if x_dtype == torch.float32:
         return "f32"
-    if w_dtype == torch.bfloat16 and aligned and d % 8 == 0 and F % 8 == 0:
+    if aligned and d % 8 == 0 and F % 8 == 0:
         return "stream" if C <= STREAM_MAX_C else "wgmma"
     return "mma"
 
@@ -119,6 +122,19 @@ def moe_gmm(x, wg, wu, wd, *, act: str = "silu"):
     return _launch(x, wg, wu, wd, act, path)
 
 
+def _workspace(path, w_dtype, E: int, C: int, F: int):
+    """-> (shape, dtype) of h between the two kernels: f32 on the "f32"
+    and "mma" paths; on the TMA paths bf16, or with f32 weights a bf16
+    hi / lo pair, each row Fp / 32 groups of 32 hi then 32 lo values (Fp:
+    F rounded up to 32; the pad is written as zeros), the bytes of an
+    f32 h when F is a multiple of 32."""
+    if path not in ("stream", "wgmma"):
+        return (E, C, F), torch.float32
+    if w_dtype == torch.bfloat16:
+        return (E, C, F), torch.bfloat16
+    return (E, C, 2 * (-(-F // 32) * 32)), torch.bfloat16
+
+
 def _launch(x, wg, wu, wd, act, path):
     """One launch of the kernel pair of ``path`` on contiguous CUDA
     tensors (``moe_gmm`` picks the path; the threshold sweep of
@@ -129,8 +145,8 @@ def _launch(x, wg, wu, wd, act, path):
         raise ValueError(f"moe_gmm: {E} experts > 65535 (the grid's z)")
     y = torch.empty_like(x)
     if y.numel():
-        ws = torch.bfloat16 if path in ("stream", "wgmma") else torch.float32
-        h = torch.empty((E, C, Fd), dtype=ws, device=x.device)
+        shape, dtype = _workspace(path, wg.dtype, E, C, Fd)
+        h = torch.empty(shape, dtype=dtype, device=x.device)
         _build.check(_lib().moe_gmm(
             x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
             h.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], _DTYPES[wg.dtype],

@@ -231,7 +231,7 @@ GMM_CASES = [  # (E, C, d, F, act, x dtype, weight dtype, scale, path)
     (8, 32, 256, 128, "silu", "float32", "float32", "ref", "f32"),
     (2, 64, 128, 256, "silu", "bfloat16", "bfloat16", "ref", "stream"),
     (3, 40, 96, 192, "gelu", "float32", "float32", "ref", "f32"),  # non-128
-    (3, 40, 96, 192, "gelu", "bfloat16", "float32", "ref", "mma"),  # mixed
+    (3, 40, 96, 192, "gelu", "bfloat16", "float32", "ref", "stream"),  # mixed
     (2, 9, 33, 20, "silu", "float32", "float32", "ref", "f32"),    # odd d
     (2, 9, 33, 20, "silu", "bfloat16", "bfloat16", "ref", "mma"),
     (4, 24, 64, 48, "silu", "float32", "bfloat16", "ref", "f32"),  # bf16
@@ -240,10 +240,12 @@ GMM_CASES = [  # (E, C, d, F, act, x dtype, weight dtype, scale, path)
     (2, 130, 72, 40, "silu", "bfloat16", "bfloat16", "ref", "wgmma"),  # ragged
                                                     # tiles, partial slab
     (2, 24, 33, 20, "silu", "bfloat16", "bfloat16", "ref", "mma"),  # d % 8
+    (2, 24, 33, 20, "silu", "bfloat16", "float32", "ref", "mma"),
+    (2, 24, 64, 36, "gelu", "bfloat16", "float32", "ref", "mma"),  # F % 8
     (64, 8, 2048, 1408, "silu", "bfloat16", "bfloat16", "model", "stream"),
-    (64, 8, 2048, 1408, "silu", "bfloat16", "float32", "model", "mma"),
+    (64, 8, 2048, 1408, "silu", "bfloat16", "float32", "model", "stream"),
     (8, 200, 2048, 1408, "silu", "bfloat16", "bfloat16", "model", "wgmma"),
-    (8, 200, 2048, 1408, "silu", "bfloat16", "float32", "model", "mma"),
+    (8, 200, 2048, 1408, "silu", "bfloat16", "float32", "model", "wgmma"),
 ]
 
 
@@ -288,9 +290,11 @@ def test_moe_gmm_kernel_matches_plain(card, E, C, d, F, act, xdt, wdt,
     _gmm_matches_plain(x, wg, wu, wd, act, path)
 
 
-# bf16 x and weights at the edges of the stream and wgmma paths:
-# (E, C, d, F, act, shift, path); C is an offset from the threshold when
-# given as a string. shift: x one element past a 16-byte boundary.
+# bf16 x, with bf16 and with f32 weights, at the edges of the stream and
+# wgmma paths: (E, C, d, F, act, shift, path); C is an offset from the
+# threshold when given as a string. shift: x one element past a 16-byte
+# boundary. F 200 and 136 leave h's last group of 32 partly pad (f32
+# weights); C 100 leaves the second consumer's rows all past C.
 _T = "threshold"
 GMM_PATH_CASES = [
     (4, _T, 512, 1408, "silu", False, "stream"),
@@ -308,13 +312,15 @@ GMM_PATH_CASES = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wdt", ["bfloat16", "float32"])
 @pytest.mark.parametrize("E,C,d,F,act,shift,path", GMM_PATH_CASES)
-def test_moe_gmm_paths_match_plain(card, E, C, d, F, act, shift, path):
+def test_moe_gmm_paths_match_plain(card, E, C, d, F, act, shift, path,
+                                   wdt):
     if isinstance(C, str):
         C = gmm.STREAM_MAX_C + (1 if C.endswith("+1") else 0)
     g = torch.Generator().manual_seed(2)
     x, wg, wu, wd = (t.to(card) for t in gmm_inputs(
-        E, C, d, F, "bfloat16", "bfloat16", "model", g))
+        E, C, d, F, "bfloat16", wdt, "model", g))
     if shift:
         x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(E, C, d)
         assert x.data_ptr() % 16 != 0 and x.is_contiguous()

@@ -90,10 +90,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 # A CUDA call's kernel pair, from the dtypes, C, d, F and the alignment
-# alone: f32 x on the fp32 cores; bf16 x and weights that TMA can take
-# on "stream" up to the threshold and "wgmma" above it; the rest of
-# bf16 x (f32 weights, d or F not a multiple of 8, a base off 16 bytes)
-# on "mma".
+# alone: f32 x on the fp32 cores; bf16 x with bf16 or f32 weights that
+# TMA can take on "stream" up to the threshold and "wgmma" above it; the
+# rest of bf16 x (d or F not a multiple of 8, a base off 16 bytes) on
+# "mma".
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("above", [False, True])
 @pytest.mark.parametrize("d,F", [(2048, 1408), (2044, 1408), (2048, 1404),
@@ -106,7 +106,7 @@ def test_path_choice(xdt, wdt, d, F, above, aligned):
     C = gmm.STREAM_MAX_C + int(above)
     if xdt == "float32":
         want = "f32"
-    elif wdt == "bfloat16" and aligned and d % 8 == 0 and F % 8 == 0:
+    elif aligned and d % 8 == 0 and F % 8 == 0:
         want = "wgmma" if above else "stream"
     else:
         want = "mma"
@@ -115,11 +115,33 @@ def test_path_choice(xdt, wdt, d, F, above, aligned):
 
 def test_serving_shapes_take_the_tma_paths():
     """deepseek-v2-lite's buckets: C 960 a 4 x 2048 prefill, 8 a decode
-    step (d 2048, F 1408, bf16 activations and params)."""
-    bf = torch.bfloat16
+    step (d 2048, F 1408, bf16 activations; bf16 params, and the
+    config's own f32 params). f32 weights TMA cannot take stay on
+    "mma"."""
+    bf, f32 = torch.bfloat16, torch.float32
     assert gmm._path(bf, bf, 960, 2048, 1408, True) == "wgmma"
     assert gmm._path(bf, bf, 8, 2048, 1408, True) == "stream"
-    assert gmm._path(bf, torch.float32, 960, 2048, 1408, True) == "mma"
+    assert gmm._path(bf, f32, 960, 2048, 1408, True) == "wgmma"
+    assert gmm._path(bf, f32, 8, 2048, 1408, True) == "stream"
+    assert gmm._path(bf, f32, 8, 2048, 1408, False) == "mma"
+    assert gmm._path(bf, f32, 960, 2044, 1408, True) == "mma"
+
+
+@pytest.mark.parametrize("path,wdt,shape,dtype", [
+    ("f32", "float32", (3, 40, 200), "float32"),
+    ("mma", "float32", (3, 40, 200), "float32"),
+    ("mma", "bfloat16", (3, 40, 200), "float32"),
+    ("stream", "bfloat16", (3, 40, 200), "bfloat16"),
+    ("wgmma", "bfloat16", (3, 40, 200), "bfloat16"),
+    # f32 weights: hi / lo groups of 32, F 200 -> Fp 224
+    ("stream", "float32", (3, 40, 448), "bfloat16"),
+    ("wgmma", "float32", (3, 40, 448), "bfloat16"),
+])
+def test_workspace_of_each_path(path, wdt, shape, dtype):
+    got = gmm._workspace(path, _TORCH[wdt], 3, 40, 200)
+    assert got == (shape, _TORCH[dtype])
+    assert gmm._workspace("wgmma", torch.float32, 64, 960, 1408) == (
+        (64, 960, 2816), torch.bfloat16)
 
 
 @pytest.mark.parametrize("view,aligned", [
